@@ -1,0 +1,42 @@
+"""Flat (exact, linear-scan) |·| MIPS index — the Θ(m) baseline,
+counterpart of `repro.mips.flat.FlatAbsIndex`.
+
+The probe is one streaming pass of the `mips_topk` kernel (K1) in ``aug``
+mode: each row gives +⟨q_j, v⟩ as id j and −⟨q_j, v⟩ as id j+m, so the
+top-k over the complement-augmented set comes out without materializing
+``[Q; 1 − Q]`` or the (m,) score vector. For k ≤ m each row contributes at
+most its non-negative sign to the top, so this equals the reference's
+top-k of |Q v| (up to the order of exact ties, which K1 documents).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.workload import as_workload
+from repro_torch.device import resolve_device
+from repro_torch.kernels.mips_topk import mips_topk
+
+
+class FlatAbsIndex:
+    """Exact top-k of |⟨q_i, v⟩| as augmented ids (j < m ⇒ +⟨q_j, v⟩;
+    j ≥ m ⇒ −⟨q_{j−m}, v⟩)."""
+
+    approx_margin = 0.0
+    failure_mass = 0.0
+
+    def __init__(self, Q, device=None):
+        """``Q``: a dense (m, U) array, tensor or `DenseWorkload`; it is
+        placed on ``device`` (default ``cuda``), sharing storage with a
+        tensor already there."""
+        W = as_workload(Q, resolve_device(device))
+        self._q = W.Q
+        self.device = self._q.device
+        self.m, self.dim = W.m, W.U
+        self.n = 2 * self.m
+
+    def query(self, v: torch.Tensor, k: int):
+        return mips_topk(self._q, v, k, mode="aug")
+
+    def query_cost(self, k: int) -> int:
+        return self.m
