@@ -26,10 +26,19 @@
    and the last `mwem_step` kernel — 50 whole iterations, without the
    set-up and the final error evaluation — and reports the device's busy
    share of that window, beside the same run's CUDA-event iteration time.
-6. Holds every kernel against its plain version again at the shapes the
-   main path gave it — K1 in `aug` mode over Q (the flat probe) and in
-   `plain` mode over the IVF centroids (the IVF probe's first step) — and
-   times both with CUDA events.
+6. The B-lane wave batch: holds K5 (the wave IVF probe) and K2/K3 on lane
+   grids to their plain versions at edge shapes (1, 3, 8 and 16 lanes, a cell
+   capacity that is no multiple of 8, lanes that share, overlap or split
+   their cells, fewer valid candidates than k, exact ties); checks a small
+   `run_mwem_batch` on the card against the CPU's and each card lane
+   against the card's single-lane `run_mwem`; then runs B = 8 lanes at the
+   main path's size in exact and flat mode (shared histogram) and IVF mode
+   (one histogram a lane, reusing the IVF index above), and profiles 51
+   iterations of the IVF wave as in step 5.
+7. Holds every kernel against its plain version again at the shapes the
+   main paths gave it — K1 in `aug` mode over Q (the flat probe) and in
+   `plain` mode over the IVF centroids (the IVF probe's first step), K5,
+   K2 and K3 at the wave's shapes — and times each with CUDA events.
 
 It needs one CUDA device and exits non-zero, printing no result, without
 one. The last lines are the card, the per-kernel JSON line and the result.
@@ -53,18 +62,26 @@ sys.path.insert(0, str(ROOT / "src"))
 U = 2 ** 14  # fastmwem-synth's domain, src/repro/configs/fastmwem_synth.py:17
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score")
+LANES = 8  # the serving tier's wave, src/repro/serve/release_service.py:218
+KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score",
+           "ivf_probe_batch", "mwem_step_batch", "gather_score_batch")
 REPLACES = {
     "mips_topk": "src/repro/kernels/mips_topk/mips_topk.py:97",
     "ivf_probe": "src/repro/kernels/ivf_probe/ivf_probe.py:120",
     "mwem_step": "src/repro/kernels/mwem_step/mwem_step.py:103",
     "gather_score": "src/repro/kernels/mwem_step/mwem_step.py:139",
+    "ivf_probe_batch": "src/repro/kernels/ivf_probe/ivf_probe.py:215",
+    "mwem_step_batch": "src/repro/kernels/mwem_step/mwem_step.py:103",
+    "gather_score_batch": "src/repro/kernels/mwem_step/mwem_step.py:139",
 }
 SOURCES = {
     "mips_topk": "src/repro_torch/csrc/mips_topk.cu",
     "ivf_probe": "src/repro_torch/csrc/ivf_probe.cu",
     "mwem_step": "src/repro_torch/csrc/mwem_step.cu",
     "gather_score": "src/repro_torch/csrc/mwem_step.cu",
+    "ivf_probe_batch": "src/repro_torch/csrc/ivf_probe.cu",
+    "mwem_step_batch": "src/repro_torch/csrc/mwem_step.cu",
+    "gather_score_batch": "src/repro_torch/csrc/mwem_step.cu",
 }
 
 
@@ -202,6 +219,38 @@ def reset_counts(ops) -> None:
         fn.launches = 0
 
 
+def profile_window(run) -> tuple:
+    """``run()``'s result and the device busy share of its iterations
+    after the first (T of them, 51 here, give a window of 50), from one
+    `torch.profiler` trace: the window runs from the end of iteration 0's
+    `mwem_step` kernel to the end of the last one, so set-up and the final
+    error evaluation lie outside it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    step_ends = sorted(e.time_range.end for e in gpu
+                       if "mwem_step_kernel" in e.name)
+    w0, w1, n_it = step_ends[0], step_ends[-1], len(step_ends) - 1
+    inside = [e for e in gpu if e.time_range.start >= w0
+              and e.time_range.end <= w1]
+    busy = {}
+    for e in inside:
+        busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
+    window_ms = (w1 - w0) / 1e3 / n_it
+    busy_ms = sum(busy.values()) / 1e3 / n_it
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    return res, {"iterations": n_it, "device_busy_ms_per_iter": busy_ms,
+                 "window_ms_per_iter": window_ms,
+                 "busy_share": busy_ms / window_ms,
+                 "device_ops_per_iter": len(inside) / n_it,
+                 "top": [[name[:60], us / 1e3 / n_it] for name, us in top]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -215,23 +264,35 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from repro_torch.core import (MWEMConfig, PrivacyLedger, TorchDraws,
-                                  release_cost, run_mwem)
+    from repro_torch.core import (LaneDraws, MWEMConfig, PrivacyLedger,
+                                  TorchDraws, release_cost, run_mwem,
+                                  run_mwem_batch)
     from repro_torch.core.queries import (gaussian_histogram, max_error,
                                           random_binary_queries)
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ivf_probe import (ivf_probe_stream,
+    from repro_torch.kernels.ivf_probe import (batch_probe_slots,
+                                               ivf_probe_stream,
+                                               ivf_probe_stream_batch,
+                                               ivf_probe_stream_batch_ref,
                                                ivf_probe_stream_ref)
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
-    from repro_torch.kernels.mwem_step import (gather_score, gather_score_ref,
-                                               mwem_step, mwem_step_ref)
+    from repro_torch.kernels.mwem_step import (gather_score,
+                                               gather_score_batch,
+                                               gather_score_batch_ref,
+                                               gather_score_ref, mwem_step,
+                                               mwem_step_batch,
+                                               mwem_step_batch_ref,
+                                               mwem_step_ref)
     from repro_torch.mips import FlatAbsIndex, IVFIndex, augment_complement
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     ops = {"mips_topk": mips_topk, "ivf_probe": ivf_probe_stream,
-           "mwem_step": mwem_step, "gather_score": gather_score}
+           "mwem_step": mwem_step, "gather_score": gather_score,
+           "ivf_probe_batch": ivf_probe_stream_batch,
+           "mwem_step_batch": mwem_step_batch,
+           "gather_score_batch": gather_score_batch}
     failures: list[str] = []
 
     def expect(cond: bool, what: str) -> None:
@@ -330,6 +391,131 @@ def main() -> int:
         expect(same, f"small {kind} release: card and CPU runs differ")
     log(f"small releases: {'ok' if not failures else 'FAILED'}")
 
+    # ------------------------------ wave kernels at ragged edge shapes
+    def probe_case(lanes, nlist, cap, d, n_ok, nprobe, ks, how, integer=False):
+        """K5 against its plain version on one planned wave: ``how`` says
+        whether the lanes probe the same cells, disjoint ones or any."""
+        if integer:
+            rows_ = torch.randint(-2, 3, (nlist, cap, d), generator=g,
+                                  device=dev).float()
+        else:
+            rows_ = randn(nlist, cap, d)
+        ids_ = torch.arange(nlist * cap, device=dev,
+                            dtype=torch.int32).reshape(nlist, cap)
+        ids_[:, n_ok:] = -1
+        rows_[:, n_ok:] = 0
+        if how == "disjoint":  # lane b's cells are b·nprobe .. (b+1)·nprobe-1
+            cents_ = torch.zeros(nlist, d, device=dev)
+            cents_[:, :nlist] = torch.eye(nlist, device=dev)
+            qb = torch.zeros(lanes, d, device=dev)
+            for b in range(lanes):
+                qb[b, b * nprobe:(b + 1) * nprobe] = torch.arange(
+                    nprobe, 0, -1, device=dev, dtype=torch.float32)
+            qb = qb + 1e-3 * randn(lanes, d)
+        else:
+            cents_ = randn(nlist, d)
+            qb = (torch.randint(-2, 3, (lanes, d), generator=g, device=dev).float()
+                  if integer else randn(lanes, d))
+            if how == "same":
+                qb = qb[:1].expand(lanes, d).contiguous()
+        slots, member, probe = batch_probe_slots(cents_, qb, nprobe)
+        n_members = member.sum(0)
+        if how == "same":
+            expect(bool((member.sum(1) % lanes == 0).all()), "same cells")
+        if how == "disjoint":
+            expect(int((member.sum(1) > 0).sum()) == lanes * nprobe,
+                   "disjoint cells")
+        expect(bool((n_members == nprobe).all()), "each lane probes nprobe")
+        tol = f32_tol(d, float((rows_.abs().reshape(-1, d) @ qb.abs().T).max()))
+        for k in ks:
+            got = ivf_probe_stream_batch(slots, member, rows_, ids_, qb, k)
+            want = ivf_probe_stream_batch_ref(slots, member, rows_, ids_, qb, k)
+            if integer:
+                ok = all(torch.equal(a, b) for a, b in zip(got, want))
+                err = 0.0
+            else:
+                ok, err = True, 0.0
+                for b in range(lanes):
+                    ok_b, err_b = same_topk(got[0][b], got[1][b], want[0][b],
+                                            want[1][b], tol)
+                    ok, err = ok and ok_b, max(err, err_b)
+                ok = ok and torch.equal(got[2], want[2])
+            expect(ok, f"ivf_probe_batch B={lanes} cap={cap} d={d} {how} "
+                   f"k={k}{' ties' if integer else ''}: max err {err}")
+
+    for lanes in (1, 3, 8):
+        probe_case(lanes, 29, 13, 40, 7, 3, (5, 21, 100), "any")
+        probe_case(lanes, 29, 13, 40, 13, 3, (16,), "same")
+        probe_case(lanes, 29, 13, 40, 13, 3, (16,), "disjoint")
+        probe_case(lanes, 13, 24, 8, 24, 3, (30,), "any", integer=True)
+    probe_case(8, 20, 150, 301, 140, 4, (200,), "any")  # d with no float4 path
+    probe_case(16, 60, 70, 64, 70, 3, (90,), "any")     # the widest wave
+    for u in (1000, 16384):
+        Qs = (torch.rand(9, u, generator=g, device=dev) < 0.3).float()
+        lw = randn(LANES, u)
+        lw = lw - lw.amax(1, keepdim=True)
+        p = torch.softmax(lw, 1)
+        ps = torch.rand(LANES, u, generator=g, device=dev)
+        hb = torch.softmax(randn(LANES, u), 1)
+        sel = torch.randint(0, 9, (LANES,), generator=g, device=dev)
+        noise = 1e-3 * randn(LANES)
+        for rule in ("paper", "signed", "hardt"):
+            for hh in (hb[0], hb):
+                got = mwem_step_batch(lw, p, ps, Qs, sel, hh, noise, rule=rule,
+                                      eta=0.3)
+                want = mwem_step_batch_ref(lw, p, ps, Qs, sel, hh, noise,
+                                           rule=rule, eta=0.3)
+                ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-7)
+                         for a, b in zip(got, want))
+                for b in range(LANES):  # each block is a single-lane launch
+                    one = mwem_step(lw[b], p[b], ps[b], Qs, sel[b],
+                                    hh if hh.dim() == 1 else hh[b], noise[b],
+                                    rule=rule, eta=0.3)
+                    ok = ok and all(torch.equal(a[b], c) for a, c in zip(got, one))
+                expect(ok, f"mwem_step_batch u={u} {rule} h{tuple(hh.shape)}")
+        aug = torch.randint(0, 18, (LANES, 50), generator=g, device=dev)
+        act = torch.rand(LANES, 50, generator=g, device=dev) < 0.5
+        V = randn(LANES, u) * 1e-3
+        got = gather_score_batch(Qs, V, aug, act)
+        err = float((got - gather_score_batch_ref(Qs, V, aug, act)).abs().max())
+        expect(err <= f32_tol(u, float((Qs @ V.abs().T).max()))
+               and float(got[~act].abs().sum()) == 0.0,
+               f"gather_score_batch u={u}: max err {err}")
+    torch.cuda.synchronize()
+    log(f"wave edge shapes: {'ok' if not failures else 'FAILED'}")
+
+    # ---------------------------------------- small wave, card vs CPU
+    rng_b = np.random.default_rng([args.seed, 1])  # leaves `rng` to the main path
+    hb_np = np.stack([gaussian_histogram(rng_b, 500, 256) for _ in range(3)])
+    for kind in ("exact", "flat", "ivf"):
+        cfg = MWEMConfig(T=30, mode="exact" if kind == "exact" else "fast",
+                         n_records=500)
+        pair = []  # (index, h, result): the card's run, then the CPU's
+        for where in (dev, torch.device("cpu")):
+            index = None
+            if kind == "flat":
+                index = FlatAbsIndex(Qs_np, device=where)
+            elif kind == "ivf":
+                index = IVFIndex(augment_complement(Qs_np), seed=0, device=where)
+            hh = hb_np if kind == "ivf" else hs_np
+            lanes = [NumpyDraws(args.seed + 20 + b) for b in range(3)]
+            pair.append((index, hh, run_mwem_batch(
+                Qs_np, hh, cfg, lanes, index=index, device=where)))
+        a, b = pair[0][2], pair[1][2]
+        same = (np.array_equal(a.selected, b.selected)
+                and np.array_equal(a.n_scored, b.n_scored)
+                and torch.allclose(a.p_hat.cpu(), b.p_hat, rtol=1e-4, atol=1e-7))
+        expect(same, f"small {kind} wave: card and CPU runs differ")
+        index, hh, _ = pair[0]
+        for lane, res in enumerate(a.unbatch()):
+            one = run_mwem(Qs_np, hh if hh.ndim == 1 else hh[lane], cfg,
+                           NumpyDraws(args.seed + 20 + lane), index=index)
+            expect(res.selected == one.selected
+                   and res.n_scored == one.n_scored,
+                   f"small {kind} wave: lane {lane} differs from its "
+                   f"single-lane run")
+    log(f"small waves: {'ok' if not failures else 'FAILED'}")
+
     # ---------------------------------------------------- main path
     m, T, n_rec = 2 ** args.m_log2, args.T, args.n_records
     t0 = time.perf_counter()
@@ -389,38 +575,75 @@ def main() -> int:
                    f"not well under m={m}")
 
     # ------------------- device busy share of an iteration, by profiler
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for kind, index in (("exact", None), ("flat", flat), ("ivf", ivf)):
-        T_prof = 51
-        cfg = MWEMConfig(T=T_prof, n_records=n_rec,
+        cfg = MWEMConfig(T=51, n_records=n_rec,
                          mode="exact" if kind == "exact" else "fast")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res = run_mwem(Q, h, cfg, TorchDraws.seeded(args.seed + 2, dev),
-                           index=index)
-            torch.cuda.synchronize()
-        gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        step_ends = sorted(e.time_range.end for e in gpu
-                           if "mwem_step_kernel" in e.name)
-        # iterations 1 .. T_prof-1: from the end of iteration 0's update to
-        # the end of the last one; the final error evaluation lies after it
-        w0, w1, n_it = step_ends[0], step_ends[-1], len(step_ends) - 1
-        inside = [e for e in gpu if e.time_range.start >= w0
-                  and e.time_range.end <= w1]
-        busy = {}
-        for e in inside:
-            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
-        window_ms = (w1 - w0) / 1e3 / n_it
-        busy_ms = sum(busy.values()) / 1e3 / n_it
-        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        log(json.dumps({"profile": kind, "iterations": n_it,
-                        "device_busy_ms_per_iter": busy_ms,
-                        "window_ms_per_iter": window_ms,
-                        "busy_share": busy_ms / window_ms,
-                        "event_iter_ms": 1e3 * float(np.mean(res.iter_seconds[1:])),
-                        "device_ops_per_iter": len(inside) / n_it,
-                        "top": [[name[:60], us / 1e3 / n_it] for name, us in top]}))
+        res, prof = profile_window(
+            lambda: run_mwem(Q, h, cfg, TorchDraws.seeded(args.seed + 2, dev),
+                             index=index))
+        log(json.dumps({"profile": kind, **prof, "event_iter_ms":
+                        1e3 * float(np.mean(res.iter_seconds[1:]))}))
+
+    # ------------------------------------------ main wave path, B lanes
+    hb_main = torch.as_tensor(np.stack([
+        gaussian_histogram(np.random.default_rng([args.seed, 2, b]), n_rec, U)
+        for b in range(LANES)])).to(dev)
+    uniform_b = max_error(Q, hb_main, torch.full((LANES, U), 1.0 / U, device=dev))
+    wave_counts = {}
+    expected_b = {"exact": {"mwem_step_batch"},
+                  "flat": {"gather_score_batch", "mwem_step_batch"},
+                  "ivf": {"ivf_probe_batch", "gather_score_batch",
+                          "mwem_step_batch"}}
+    waves = {}
+    for kind, index in (("exact", None), ("flat", flat), ("ivf", ivf)):
+        cfg = MWEMConfig(eps=1.0, delta=1e-3, T=T, n_records=n_rec,
+                         mode="exact" if kind == "exact" else "fast")
+        hh = hb_main if kind == "ivf" else h
+        base = uniform_b if kind == "ivf" else torch.full((LANES,), uniform,
+                                                          device=dev)
+        draws = LaneDraws.seeded([args.seed + 100 + b for b in range(LANES)], dev)
+        ledgers = [PrivacyLedger() for _ in range(LANES)]
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = run_mwem_batch(Q, hh, cfg, draws, index=index, ledgers=ledgers)
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in ops.items()}
+        wave_counts[kind] = counts
+        for name, c in counts.items():
+            launches[name] += c
+        waves[kind] = res
+        preview = PrivacyLedger().preview(*release_cost(cfg, m, U, index))
+        errs = res.final_errors
+        log(json.dumps({"wave": kind, "lanes": LANES,
+                        "final_errors": errs.tolist(),
+                        "uniform_errors": base.tolist(),
+                        "mean_n_scored": float(res.n_scored.mean()),
+                        "overflow_counts": res.overflow_counts.tolist(),
+                        "distinct_selections": len({tuple(r) for r in res.selected}),
+                        "preview": preview, "wall_s": wall,
+                        "device_s": res.total_seconds,
+                        "ms_per_iter": 1e3 * res.total_seconds / T,
+                        "launches": counts}))
+        expect(bool(np.isfinite(errs).all()) and bool((errs < base.cpu().numpy()).all()),
+               f"wave {kind}: errors {errs} not all below uniform {base.tolist()}")
+        expect(bool(torch.isfinite(res.p_hat).all())
+               and tuple(res.p_hat.shape) == (LANES, U), f"wave {kind}: p_hat malformed")
+        expect(all(led.composed() == preview for led in ledgers),
+               f"wave {kind}: a lane's ledger differs from {preview}")
+        expect(len({tuple(r) for r in res.selected}) > 1,
+               f"wave {kind}: every lane selected the same queries")
+        for name in expected_b[kind]:
+            expect(counts[name] > 0, f"wave {kind}: kernel {name} never launched")
+
+    T_prof = 51
+    cfg = MWEMConfig(T=T_prof, n_records=n_rec, mode="fast")
+    res, prof = profile_window(lambda: run_mwem_batch(
+        Q, hb_main, cfg, LaneDraws.seeded(range(args.seed + 200,
+                                                args.seed + 200 + LANES), dev),
+        index=ivf))
+    log(json.dumps({"profile": "wave ivf", "lanes": LANES, **prof,
+                    "event_iter_ms": 1e3 * res.total_seconds / T_prof}))
 
     # ------------------------------- kernels at the main path's shapes
     p = torch.softmax(torch.zeros(U, device=dev), 0)
@@ -471,6 +694,54 @@ def main() -> int:
          f32_tol(U, vq), 4.0 * n_act * U + 4 * U + 13 * tail_cap,
          2.0 * n_act * U),
     ]
+    # The wave's kernels at the IVF wave's shapes: its last probes, the
+    # union of their cells, lane state from its release.
+    Vb = hb_main - waves["ivf"].p_hat
+    slots, member, _ = batch_probe_slots(ivf._cents, Vb, ivf.nprobe)
+    cap8 = ivf._cells8.shape[1]
+    rows_ok = (ivf._cells8[slots.long()] >= 0).sum(1).double()
+    n_unique = int((member.sum(1) > 0).sum())
+    rows_read = float((rows_ok * (member.sum(1) > 0)).sum())  # unique cells
+    pairs = float((rows_ok * member.sum(1).double()).sum())   # (row, lane)
+    log(json.dumps({"wave_probe_plan": {"slots": slots.numel(),
+                                        "unique_cells": n_unique,
+                                        "rows_read": rows_read,
+                                        "row_lane_pairs": pairs}}))
+    lw_b = torch.zeros(LANES, U, device=dev)
+    p_b = torch.softmax(lw_b, 1)
+    ps_b = waves["ivf"].p_hat.clone()
+    sel_b = torch.as_tensor(waves["ivf"].selected[:, -1], device=dev)
+    noise_b = torch.full((LANES,), 1e-3, device=dev)
+    aug_b = torch.randint(0, 2 * m, (LANES, tail_cap), generator=rows_gen,
+                          device=dev)
+    active_b = torch.rand(LANES, tail_cap, generator=rows_gen, device=dev) < 0.25
+    n_act_b = int(active_b.sum())
+    eta = math.sqrt(math.log(U) / T)
+    cases += [
+        ("ivf_probe_batch", "ivf_probe_batch", None, launches["ivf_probe_batch"],
+         lambda: ivf_probe_stream_batch(slots, member, ivf._cell_rows,
+                                        ivf._cells8, Vb, k),
+         lambda: ivf_probe_stream_batch_ref(slots, member, ivf._cell_rows,
+                                            ivf._cells8, Vb, k),
+         f32_tol(U, float(max((ivf._cell_rows[slots[:n_unique].long()].abs()
+                               @ Vb[b].abs()).max() for b in range(LANES)))),
+         4.0 * rows_read * U + 4 * LANES * U + 4 * n_unique * cap8
+         + 4 * slots.numel() * (1 + LANES) + 8 * LANES * k + 4 * LANES,
+         2.0 * pairs * U),
+        ("mwem_step_batch", "mwem_step_batch", None, launches["mwem_step_batch"],
+         lambda: mwem_step_batch(lw_b, p_b, ps_b, Q, sel_b, hb_main, noise_b,
+                                 rule="hardt", eta=eta),
+         lambda: mwem_step_batch_ref(lw_b, p_b, ps_b, Q, sel_b, hb_main,
+                                     noise_b, rule="hardt", eta=eta),
+         None, LANES * (4.0 * 8 * U + 12), LANES * 12.0 * U),
+        ("gather_score_batch", "gather_score_batch", None,
+         launches["gather_score_batch"],
+         lambda: gather_score_batch(Q, Vb, aug_b, active_b),
+         lambda: gather_score_batch_ref(Q, Vb, aug_b, active_b),
+         f32_tol(U, float((Q.abs() @ Vb.abs().T).max())),
+         4.0 * n_act_b * U + 4 * LANES * U + 13 * LANES * tail_cap,
+         2.0 * n_act_b * U),
+    ]
     rows_out = []
     for row, name, mode, n_launch, kern, plain, tol, nbytes, flops in cases:
         got, want = kern(), plain()
@@ -479,7 +750,13 @@ def main() -> int:
             ok, err = same_topk(got[0], got[1], want[0], want[1], tol)
             if name == "ivf_probe":
                 ok = ok and int(got[2]) == int(want[2])
-        elif name == "gather_score":
+        elif name == "ivf_probe_batch":
+            ok, err = torch.equal(got[2], want[2]), 0.0
+            for b in range(LANES):
+                ok_b, err_b = same_topk(got[0][b], got[1][b], want[0][b],
+                                        want[1][b], tol)
+                ok, err = ok and ok_b, max(err, err_b)
+        elif name.startswith("gather_score"):
             err = float((got - want).abs().max())
             ok = err <= tol
         else:

@@ -1,13 +1,16 @@
-"""Core mechanisms of the port: accounting, selection, the MWEM driver."""
+"""Core mechanisms of the port: accounting, selection, the MWEM drivers."""
 
 from repro_torch.core.accountant import (PrivacyLedger, advanced_composition,
                                          calibrate_eps0)
-from repro_torch.core.mwem import (MWEMConfig, MWEMResult, MWEMState,
-                                   release_cost, run_mwem)
-from repro_torch.core.rng import Draws, TorchDraws
+from repro_torch.core.mwem import (MWEMBatchResult, MWEMConfig,
+                                   MWEMPendingBatch, MWEMResult, MWEMState,
+                                   finish_mwem_batch, launch_mwem_batch,
+                                   release_cost, run_mwem, run_mwem_batch)
+from repro_torch.core.rng import Draws, LaneDraws, TorchDraws
 
 __all__ = [
-    "Draws", "MWEMConfig", "MWEMResult", "MWEMState", "PrivacyLedger",
-    "TorchDraws", "advanced_composition", "calibrate_eps0", "release_cost",
-    "run_mwem",
+    "Draws", "LaneDraws", "MWEMBatchResult", "MWEMConfig", "MWEMPendingBatch",
+    "MWEMResult", "MWEMState", "PrivacyLedger", "TorchDraws",
+    "advanced_composition", "calibrate_eps0", "finish_mwem_batch",
+    "launch_mwem_batch", "release_cost", "run_mwem", "run_mwem_batch",
 ]

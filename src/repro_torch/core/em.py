@@ -17,7 +17,8 @@ def exact_em(gumbels: torch.Tensor, utilities: torch.Tensor, eps: float,
              sensitivity: float) -> torch.Tensor:
     """ε-DP exponential mechanism given one Gumbel per candidate.
 
-    Θ(|R|) time — the baseline the paper's LazyEM beats.
+    Θ(|R|) time — the baseline the paper's LazyEM beats. (B, n) utilities
+    and Gumbels select one candidate a lane (the wave's exhaustive oracle).
     """
     return gumbel_max(gumbels, em_scores(utilities, eps, sensitivity))
 

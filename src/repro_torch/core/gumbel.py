@@ -30,5 +30,6 @@ def truncated_gumbel(u: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def gumbel_max(gumbels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     """Gumbel-Max trick (Lemma C.2): argmax(scores + G) ~ softmax(scores).
 
-    Ties go to the lowest index, as in `jnp.argmax`."""
-    return torch.argmax(scores + gumbels)
+    Ties go to the lowest index, as in `jnp.argmax`. Works along the last
+    axis: (B, n) scores give one winner a lane."""
+    return torch.argmax(scores + gumbels, dim=-1)

@@ -8,6 +8,11 @@ and ``C > tail_cap`` (or a buffer that ran out of distinct ids) raises the
 mechanism on the fallback stream (`Draws.fallback_gumbel`, the
 counterpart of `repro.core.lazy_em.fallback_key`). Every quantity stays a
 device tensor; only the driver reads the overflow flag back.
+
+Every function works along the last axis, so a wave of B lanes runs the
+same code on (B, k) top-k sets with a `LaneDraws` source and gets (B,)
+results: lane b's numbers are those of the single-lane call given lane b's
+draws, as the reference's ``vmap`` gives.
 """
 
 from __future__ import annotations
@@ -27,17 +32,19 @@ def default_tail_cap(n: int) -> int:
 
 
 class LazyEMResult(NamedTuple):
-    index: torch.Tensor       # selected candidate id in [n] (0-d int64)
-    n_scored: torch.Tensor    # k + distinct tail candidates scored (0-d int64)
-    tail_count: torch.Tensor  # the raw binomial draw C (0-d int64)
-    margin: torch.Tensor      # the threshold B actually used (0-d f32)
-    overflow: torch.Tensor    # 0-d bool: the caller must redo exactly
+    """One value a lane: 0-d for a single lane, (B,) for a wave."""
+
+    index: torch.Tensor       # selected candidate id in [n] (int64)
+    n_scored: torch.Tensor    # k + distinct tail candidates scored (int64)
+    tail_count: torch.Tensor  # the raw binomial draw C (int64)
+    margin: torch.Tensor      # the threshold B actually used (f32)
+    overflow: torch.Tensor    # bool: the caller must redo exactly
 
 
 def _complement_shift(sorted_s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Map complement-space ids ``u ∈ [0, n−k)`` to ``[n] \\ S``: with
     ``t_j = s_j − j`` (non-decreasing) the id is ``u + |{j : t_j ≤ u}|``."""
-    t = sorted_s - torch.arange(sorted_s.shape[0], device=sorted_s.device)
+    t = sorted_s - torch.arange(sorted_s.shape[-1], device=sorted_s.device)
     return u + torch.searchsorted(t, u, right=True)
 
 
@@ -50,17 +57,17 @@ def draw_distinct_tail(draws: Draws, t: int, topk_idx: torch.Tensor, n: int,
     sorted top-k set; duplicates are masked by a stable sort and the first
     ``C`` distinct ids are kept. Returns ``(tail_idx, active, overflow)``.
     """
-    k = topk_idx.shape[0]
+    k = topk_idx.shape[-1]
     u = draws.tail_randint(t, tail_cap, max(n - k, 1), topk_idx.device)
-    sorted_s = torch.sort(topk_idx.to(torch.int64)).values
+    sorted_s = torch.sort(topk_idx.to(torch.int64), dim=-1).values
     tail_idx = _complement_shift(sorted_s, u)
-    su, order = torch.sort(u, stable=True)  # first occurrence keeps earliest slot
+    # first occurrence keeps the earliest slot
+    su, order = torch.sort(u, dim=-1, stable=True)
     dup_sorted = torch.zeros_like(su, dtype=torch.bool)
-    dup_sorted[1:] = su[1:] == su[:-1]
-    first_occ = torch.empty_like(dup_sorted)
-    first_occ[order] = ~dup_sorted
-    active = first_occ & (torch.cumsum(first_occ, 0) <= C)
-    overflow = (C > tail_cap) | (active.sum() < C)
+    dup_sorted[..., 1:] = su[..., 1:] == su[..., :-1]
+    first_occ = torch.empty_like(dup_sorted).scatter_(-1, order, ~dup_sorted)
+    active = first_occ & (torch.cumsum(first_occ, -1) <= C.unsqueeze(-1))
+    overflow = (C > tail_cap) | (active.sum(-1) < C)
     return tail_idx, active, overflow
 
 
@@ -71,32 +78,35 @@ def lazy_em_from_topk(draws: Draws, t: int, topk_idx: torch.Tensor,
     """Lazy Gumbel sampling given an (approximate) top-k set.
 
     Args:
-      draws / t: the draw source and the iteration the draws belong to.
+      draws / t: the draw source and the iteration the draws belong to
+        (a `LaneDraws` for a wave).
       topk_idx / topk_scores: (k,) candidate ids of S and their EM
-        log-space scores ``ε·u/(2Δ)``.
+        log-space scores ``ε·u/(2Δ)``; (B, k) for a wave.
       n: total number of candidates.
       score_fn: ``(ids, active) -> scores`` in EM log-space for the
-        tail buffer; slots where ``active`` is False may hold anything.
+        tail buffer, of the buffer's shape; slots where ``active`` is
+        False may hold anything.
       margin_slack: the approximation constant c (Alg. 6 lowers B by c).
     """
-    k = topk_idx.shape[0]
+    k = topk_idx.shape[-1]
     dev = topk_scores.device
     # Alg. 4 l.3-5: Gumbel-perturb S and set the margin B.
     pert_s = topk_scores + draws.topk_gumbel(t, k, dev)
-    B = pert_s.max() - topk_scores.min() - margin_slack
+    B = pert_s.amax(-1) - topk_scores.amin(-1) - margin_slack
     # l.6: how many tail Gumbels exceed B.
     C = draws.tail_count(t, n - k, tail_prob(B))
     # l.7: C distinct uniform ids from [n] \ S.
     tail_idx, active, overflow = draw_distinct_tail(draws, t, topk_idx, n,
                                                     tail_cap, C)
     # l.8: truncated Gumbels for the tail.
-    g_t = truncated_gumbel(draws.tail_uniform(t, tail_cap, dev), B)
+    g_t = truncated_gumbel(draws.tail_uniform(t, tail_cap, dev), B.unsqueeze(-1))
     pert_t = (score_fn(tail_idx, active) + g_t).masked_fill(~active, -math.inf)
     # l.9: argmax over S ∪ T (first maximum, as `jnp.argmax`).
-    all_pert = torch.cat([pert_s, pert_t])
-    all_idx = torch.cat([topk_idx.to(torch.int64), tail_idx])
-    winner = all_idx[torch.argmax(all_pert)]
-    return LazyEMResult(index=winner, n_scored=k + active.sum(),
+    all_pert = torch.cat([pert_s, pert_t], -1)
+    all_idx = torch.cat([topk_idx.to(torch.int64), tail_idx], -1)
+    best = torch.argmax(all_pert, dim=-1, keepdim=True)
+    winner = all_idx.gather(-1, best).squeeze(-1)
+    return LazyEMResult(index=winner, n_scored=k + active.sum(-1),
                         tail_count=C, margin=B, overflow=overflow)
 
 

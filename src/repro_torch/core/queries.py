@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.workload import DenseWorkload
+
 
 def gaussian_histogram(rng: np.random.Generator, n: int, U: int, mean=None,
                        std=None) -> np.ndarray:
@@ -41,7 +43,8 @@ def random_binary_queries(rng: np.random.Generator, m: int, U: int, mean=None,
 
 def max_error(Q, h: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """‖Q(p − h)‖_∞ — the utility objective (Eq. 1). ``Q`` is a dense
-    (m, U) tensor or a workload."""
-    if hasattr(Q, "max_err"):
-        return Q.max_err(h, p)
-    return torch.max(torch.abs(Q @ (p - h)))
+    (m, U) tensor or a workload; (B, U) densities ``p`` give (B,) errors,
+    against a shared (U,) or per-lane (B, U) ``h``."""
+    if not hasattr(Q, "max_err"):
+        Q = DenseWorkload(Q)
+    return Q.max_err(h, p)

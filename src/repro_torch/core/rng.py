@@ -9,11 +9,16 @@ belongs to. The production implementation, `TorchDraws`, reads a
 test implementation can walk the reference key chain instead and hand each
 draw over as a tensor, which is how the port is held to the reference run
 for run.
+
+A wave of B lanes draws through `LaneDraws`: it holds one `Draws` a lane
+and stacks one draw of each lane into a (B, ...) tensor. Each lane consumes
+its own source in exactly the order a single-lane `run_mwem` does, so lane
+b of a batch equals `run_mwem` fed lane b's source.
 """
 
 from __future__ import annotations
 
-from typing import Protocol
+from typing import Protocol, Sequence
 
 import torch
 
@@ -104,3 +109,53 @@ class TorchDraws:
         u = self._rand((), device).clamp_min(_TINY)
         return torch.where(u < 0.5, torch.log(2.0 * u),
                            -torch.log(2.0 - 2.0 * u))
+
+
+class LaneDraws:
+    """One `Draws` a lane, each draw stacked over the lanes.
+
+    Built from B `Draws` or B `torch.Generator`s (wrapped in `TorchDraws`).
+    The batch driver asks for each kind of draw once an iteration, for all
+    lanes, in the single-lane order; `fallback_gumbel` is asked only of the
+    lanes whose tail buffer overflowed.
+    """
+
+    def __init__(self, lanes: Sequence):
+        self.lanes = [TorchDraws(d) if isinstance(d, torch.Generator) else d
+                      for d in lanes]
+        if not self.lanes:
+            raise ValueError("a wave needs at least one lane")
+
+    @classmethod
+    def seeded(cls, seeds: Sequence[int], device) -> "LaneDraws":
+        return cls([TorchDraws.seeded(s, device) for s in seeds])
+
+    def __len__(self) -> int:
+        return len(self.lanes)
+
+    def topk_gumbel(self, t, k, device):
+        return torch.stack([d.topk_gumbel(t, k, device) for d in self.lanes])
+
+    def tail_count(self, t, trials, p):
+        """(B,) int64 counts; ``p`` is the (B,) per-lane tail probability."""
+        return torch.stack([d.tail_count(t, trials, p[b])
+                            for b, d in enumerate(self.lanes)])
+
+    def tail_randint(self, t, size, high, device):
+        return torch.stack([d.tail_randint(t, size, high, device)
+                            for d in self.lanes])
+
+    def tail_uniform(self, t, size, device):
+        return torch.stack([d.tail_uniform(t, size, device) for d in self.lanes])
+
+    def exhaustive_gumbel(self, t, n, device):
+        return torch.stack([d.exhaustive_gumbel(t, n, device)
+                            for d in self.lanes])
+
+    def fallback_gumbel(self, t, n, device, lanes: Sequence[int]):
+        """(len(lanes), n) fallback Gumbels of the listed lanes only."""
+        return torch.stack([self.lanes[b].fallback_gumbel(t, n, device)
+                            for b in lanes])
+
+    def laplace(self, t, device):
+        return torch.stack([d.laplace(t, device) for d in self.lanes])

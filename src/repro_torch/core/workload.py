@@ -34,11 +34,17 @@ class DenseWorkload:
         return self.Q.device
 
     def scores(self, v: torch.Tensor) -> torch.Tensor:
-        """All m signed scores ``Q v`` (the exhaustive oracle)."""
+        """All m signed scores ``Q v`` (the exhaustive oracle); a (B, U)
+        block of probes gives (B, m), one ``(B, U) @ (U, m)`` product."""
+        if v.dim() == 2:
+            return v @ self.Q.T
         return self.Q @ v
 
     def max_err(self, h: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-        """‖Q(p − h)‖_∞ (Eq. 1)."""
+        """‖Q(p − h)‖_∞ (Eq. 1); (B, U) densities (and a shared (U,) or
+        per-lane (B, U) ``h``) give one error a lane."""
+        if p.dim() == 2:
+            return torch.amax(torch.abs((p - h) @ self.Q.T), dim=-1)
         return torch.max(torch.abs(self.Q @ (p - h)))
 
     def __repr__(self):

@@ -13,7 +13,9 @@
 // own candidates in shared memory and writes its best `kout`; then
 // `topk_merge_kernel` rounds sort groups of `group` keys and keep the best
 // `k` of each, until one sorted run is left. Only the candidates' keys ever
-// reach device memory, never the full score vector.
+// reach device memory, never the full score vector. A batched probe merges
+// several independent top-k at once: lane l's keys start `stride` keys after
+// lane l-1's, and the merge grid's second dimension is the lane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -104,10 +106,14 @@ __device__ __forceinline__ void bitonic_sort_desc(uint64_t* s, int S) {
   __syncthreads();
 }
 
-// Each block sorts `group` keys of `in` and writes its best k to `out`.
+// Each block sorts `group` keys of `in` and writes its best k to `out`;
+// blockIdx.y is the lane, whose keys lie `stride` keys apart in both.
 __global__ void topk_merge_kernel(const uint64_t* __restrict__ in, long long n_in,
-                                  int group, int k, uint64_t* __restrict__ out) {
+                                  int group, int k, uint64_t* __restrict__ out,
+                                  long long stride) {
   extern __shared__ uint64_t s[];
+  in += blockIdx.y * stride;
+  out += blockIdx.y * stride;
   const long long base = static_cast<long long>(blockIdx.x) * group;
   for (int i = threadIdx.x; i < group; i += blockDim.x) {
     const long long g = base + i;
@@ -144,11 +150,13 @@ inline long long merge_scratch_len(long long n0, int k) {
   return 2 * m;
 }
 
-// Merge rounds on the stream. `a` holds n0 keys in `runs` sorted runs;
-// *result points at the one sorted run left (length *len) on return.
+// Merge rounds on the stream. `a` holds n0 keys in `runs` sorted runs (for
+// each of `lanes` lanes, `stride` keys apart; `b` likewise); *result points
+// at the one sorted run left (length *len, lanes still `stride` apart).
 inline cudaError_t merge_rounds(uint64_t* a, uint64_t* b, long long n0, int runs,
                                 int k, cudaStream_t stream,
-                                const uint64_t** result, long long* len) {
+                                const uint64_t** result, long long* len,
+                                int lanes = 1, long long stride = 0) {
   const int group = merge_group(k);
   const size_t smem = static_cast<size_t>(group) * sizeof(uint64_t);
   cudaError_t err = cudaFuncSetAttribute(
@@ -159,8 +167,9 @@ inline cudaError_t merge_rounds(uint64_t* a, uint64_t* b, long long n0, int runs
   bool single = runs <= 1;
   while (!single) {
     const long long groups = ceil_div(n, group);
-    topk_merge_kernel<<<static_cast<unsigned>(groups), kMergeThreads, smem,
-                        stream>>>(a, n, group, k, b);
+    const dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(lanes));
+    topk_merge_kernel<<<grid, kMergeThreads, smem, stream>>>(a, n, group, k, b,
+                                                             stride);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     n = groups * k;

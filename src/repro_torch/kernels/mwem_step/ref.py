@@ -58,3 +58,23 @@ def gather_score_ref(q_rows, v, aug_idx, active=None):
     if active is not None:
         out = torch.where(active, out, torch.zeros_like(out))
     return out
+
+
+def mwem_step_batch_ref(log_w, p, p_sum, q_rows, sel, h, noise, *, rule: str,
+                        eta: float):
+    """`mwem_step_ref` lane by lane over (B, U) state, (B,) ``sel`` and
+    ``noise``, and a shared (U,) or per-lane (B, U) ``h`` — so lane b's
+    numbers are exactly the single-lane plain version's."""
+    lanes = [mwem_step_ref(log_w[b], p[b], p_sum[b], q_rows, sel[b],
+                           h if h.dim() == 1 else h[b], noise[b], rule=rule,
+                           eta=eta) for b in range(log_w.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*lanes))
+
+
+def gather_score_batch_ref(q_rows, V, aug_idx, active=None):
+    """`gather_score_ref` lane by lane: row b of the (B, C) ids is scored
+    against ``V[b]``."""
+    return torch.stack([
+        gather_score_ref(q_rows, V[b], aug_idx[b],
+                         None if active is None else active[b])
+        for b in range(aug_idx.shape[0])])

@@ -20,15 +20,23 @@ class MIPSIndex(Protocol):
       failure_mass: γ, the probability mass of the index answering wrongly
         over a whole run (adds to δ, Thm 3.3).
       device: where the index's tables live; probes must live there too.
+      supports_batch_probe: ``query_batch`` serves a whole wave, as
+        `run_mwem_batch` requires.
     """
 
     approx_margin: float
     failure_mass: float
     device: torch.device
+    supports_batch_probe: bool
 
     def query(self, v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(augmented ids, raw scores) of the (approximate) top-k, both on
         the device, with no host round-trip."""
+        ...
+
+    def query_batch(self, V: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The same for a (B, dim) wave of probes: (B, k) ids and scores,
+        lane b equal to ``query(V[b], k)`` up to the order of exact ties."""
         ...
 
     def query_cost(self, k: int) -> int:

@@ -9,7 +9,9 @@ out once on the device grouped by cell, ``cell_rows`` (nlist, cap8, dim)
 with cap padded to a multiple of 8 and pad slots zero (id −1), and the
 flat row copy is dropped: a probe is the `ivf_probe_topk` pair of kernels,
 K1 (``plain``) over the centroids for the top-nprobe cells, then K4 over
-only those cells' rows. Defaults follow the paper: nlist = max(2√n, 20),
+only those cells' rows. A wave of B probes (`query_batch`) plans the union
+of the lanes' cells and reads each once for all lanes (K5,
+`ivf_probe_topk_batch`). Defaults follow the paper: nlist = max(2√n, 20),
 nprobe = min(nlist/4, 10).
 """
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ivf_probe import ivf_probe_topk
+from repro_torch.kernels.ivf_probe import ivf_probe_topk, ivf_probe_topk_batch
 
 _CELL_CHUNK_BYTES = 2**30  # device scratch bound while laying out cell_rows
 
@@ -103,6 +105,8 @@ class IVFIndex:
     `augment_complement(Q)` on the release path): ``query`` returns row ids
     in [0, n) and their signed scores."""
 
+    supports_batch_probe = True
+
     def __init__(self, vectors, nlist: int | None = None, nprobe: int | None = None,
                  cap_factor: float = 2.0, train_iters: int = 10, seed: int = 0,
                  approx_margin: float = 0.0, failure_mass: float | None = None,
@@ -150,6 +154,14 @@ class IVFIndex:
     def query(self, v: torch.Tensor, k: int):
         ids, scores, _ = ivf_probe_topk(self._cents, self._cell_rows,
                                         self._cells8, v, k, self.nprobe)
+        return ids, scores
+
+    def query_batch(self, V: torch.Tensor, k: int):
+        """Probe a (B, dim) wave → ``(ids (B, k), scores (B, k))``. Exact
+        score ties rank in ascending cell order here, in probe order in
+        `query` — the only way a lane can differ from a single probe."""
+        ids, scores, _ = ivf_probe_topk_batch(self._cents, self._cell_rows,
+                                              self._cells8, V, k, self.nprobe)
         return ids, scores
 
     def query_cost(self, k: int) -> int:
