@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port of Fast-MWEM on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--T 1000] [--m-log2 16] [--n-records 100000]
+                          [--attrs 15]
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, in parallel) into ``build/repro_torch/``.
@@ -35,10 +36,28 @@
    main path's size in exact and flat mode (shared histogram) and IVF mode
    (one histogram a lane, reusing the IVF index above), and profiles 51
    iterations of the IVF wave as in step 5.
-7. Holds every kernel against its plain version again at the shapes the
+7. Factored k-way marginal workloads: holds K6 (`marginal_gather_score`)
+   to its plain version at edge shapes (cliques of 1 to 4 attributes with
+   padded arities, heterogeneous cards, a domain that is no multiple of the
+   block, one candidate, no active slot, − signs, U = 2**15 and 2**16) and
+   K2's multi-block route (U = 16385, 32768, 65536, 100000; all three
+   rules; one lane and an 8-lane grid with shared and per-lane h; two
+   launches must agree bit for bit); checks a small factored release, card
+   against CPU on numpy draws, in exact, flat and marginal-IVF mode; then
+   runs the factored main path — all 4-way marginals over ``--attrs`` = 15
+   binary attributes (U = 2**15, m = 21840, no dense table:
+   `benchmarks/bench_marginals.py:75-79`), n = 100000 records drawn as
+   multinomial counts under ``softmax(2·N(0,1))`` logits, T = 1000 — in
+   exact, fast/flat and fast/marginal-IVF mode (each below the uniform
+   baseline, each ledger equal to its preview, K6 and the multi-block K2
+   launched in both fast modes), the adaptive worst-marginal loop (T = 30)
+   on the same workload, and profiles 51 iterations of each factored mode
+   as in step 5 (the window keyed on the multi-block K2's last pass).
+8. Holds every kernel against its plain version again at the shapes the
    main paths gave it — K1 in `aug` mode over Q (the flat probe) and in
    `plain` mode over the IVF centroids (the IVF probe's first step), K5,
-   K2 and K3 at the wave's shapes — and times each with CUDA events.
+   K2 and K3 at the wave's shapes, K6 and the multi-block K2 at the
+   factored path's — and times each with CUDA events.
 
 It needs one CUDA device and exits non-zero, printing no result, without
 one. The last lines are the card, the per-kernel JSON line and the result.
@@ -47,6 +66,7 @@ one. The last lines are the card, the per-kernel JSON line and the result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -64,7 +84,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 LANES = 8  # the serving tier's wave, src/repro/serve/release_service.py:218
 KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score",
-           "ivf_probe_batch", "mwem_step_batch", "gather_score_batch")
+           "ivf_probe_batch", "mwem_step_batch", "gather_score_batch",
+           "marginal_gather_score", "mwem_step:multiblock")
+# Timed and checked like a kernel of the list, but no main path runs it yet
+# (a factored wave is not ported): its line is logged, not in the result.
+TIMING_ONLY = ("mwem_step_batch:multiblock",)
 REPLACES = {
     "mips_topk": "src/repro/kernels/mips_topk/mips_topk.py:97",
     "ivf_probe": "src/repro/kernels/ivf_probe/ivf_probe.py:120",
@@ -73,6 +97,9 @@ REPLACES = {
     "ivf_probe_batch": "src/repro/kernels/ivf_probe/ivf_probe.py:215",
     "mwem_step_batch": "src/repro/kernels/mwem_step/mwem_step.py:103",
     "gather_score_batch": "src/repro/kernels/mwem_step/mwem_step.py:139",
+    "marginal_gather_score": "src/repro/kernels/mwem_step/mwem_step.py:189",
+    "mwem_step:multiblock": "src/repro/kernels/mwem_step/mwem_step.py:103",
+    "mwem_step_batch:multiblock": "src/repro/kernels/mwem_step/mwem_step.py:103",
 }
 SOURCES = {
     "mips_topk": "src/repro_torch/csrc/mips_topk.cu",
@@ -82,6 +109,9 @@ SOURCES = {
     "ivf_probe_batch": "src/repro_torch/csrc/ivf_probe.cu",
     "mwem_step_batch": "src/repro_torch/csrc/mwem_step.cu",
     "gather_score_batch": "src/repro_torch/csrc/mwem_step.cu",
+    "marginal_gather_score": "src/repro_torch/csrc/mwem_step.cu",
+    "mwem_step:multiblock": "src/repro_torch/csrc/mwem_step.cu",
+    "mwem_step_batch:multiblock": "src/repro_torch/csrc/mwem_step.cu",
 }
 
 
@@ -217,14 +247,27 @@ def card_line() -> str:
 def reset_counts(ops) -> None:
     for fn in ops.values():
         fn.launches = 0
+        if hasattr(fn, "launches_multiblock"):
+            fn.launches_multiblock = 0
 
 
-def profile_window(run) -> tuple:
+def read_counts(ops) -> dict:
+    """Each kernel's launches since `reset_counts`; the multi-block route
+    of K2 under its own row name."""
+    counts = {name: fn.launches for name, fn in ops.items()}
+    for name, fn in ops.items():
+        if hasattr(fn, "launches_multiblock"):
+            counts[f"{name}:multiblock"] = fn.launches_multiblock
+    return counts
+
+
+def profile_window(run, step_kernel: str = "mwem_step_kernel") -> tuple:
     """``run()``'s result and the device busy share of its iterations
     after the first (T of them, 51 here, give a window of 50), from one
     `torch.profiler` trace: the window runs from the end of iteration 0's
-    `mwem_step` kernel to the end of the last one, so set-up and the final
-    error evaluation lie outside it."""
+    last K2 kernel (``step_kernel``: the one-block `mwem_step_kernel`, or
+    the multi-block route's last pass) to the end of the last one, so
+    set-up and the final error evaluation lie outside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -234,7 +277,7 @@ def profile_window(run) -> tuple:
         torch.cuda.synchronize()
     gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     step_ends = sorted(e.time_range.end for e in gpu
-                       if "mwem_step_kernel" in e.name)
+                       if step_kernel in e.name)
     w0, w1, n_it = step_ends[0], step_ends[-1], len(step_ends) - 1
     inside = [e for e in gpu if e.time_range.start >= w0
               and e.time_range.end <= w1]
@@ -257,6 +300,8 @@ def main() -> int:
     ap.add_argument("--T", type=int, default=1000)
     ap.add_argument("--m-log2", type=int, default=16)
     ap.add_argument("--n-records", type=int, default=100_000)
+    ap.add_argument("--attrs", type=int, default=15,
+                    help="binary attributes of the factored main path")
     args = ap.parse_args()
 
     import torch
@@ -264,9 +309,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from repro_torch.core import (LaneDraws, MWEMConfig, PrivacyLedger,
-                                  TorchDraws, release_cost, run_mwem,
-                                  run_mwem_batch)
+    from repro_torch.core import (AdaptiveConfig, LaneDraws, MWEMConfig,
+                                  MarginalWorkload, PrivacyLedger, TorchDraws,
+                                  release_cost, run_adaptive_marginals,
+                                  run_mwem, run_mwem_batch)
     from repro_torch.core.queries import (gaussian_histogram, max_error,
                                           random_binary_queries)
     from repro_torch.kernels import _build
@@ -276,14 +322,17 @@ def main() -> int:
                                                ivf_probe_stream_batch_ref,
                                                ivf_probe_stream_ref)
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
-    from repro_torch.kernels.mwem_step import (gather_score,
+    from repro_torch.kernels.mwem_step import (MAX_U, gather_score,
                                                gather_score_batch,
                                                gather_score_batch_ref,
-                                               gather_score_ref, mwem_step,
-                                               mwem_step_batch,
+                                               gather_score_ref,
+                                               marginal_gather_score,
+                                               marginal_gather_score_ref,
+                                               mwem_step, mwem_step_batch,
                                                mwem_step_batch_ref,
                                                mwem_step_ref)
-    from repro_torch.mips import FlatAbsIndex, IVFIndex, augment_complement
+    from repro_torch.mips import (FlatAbsIndex, IVFIndex, MarginalIVFIndex,
+                                  augment_complement)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -292,7 +341,8 @@ def main() -> int:
            "mwem_step": mwem_step, "gather_score": gather_score,
            "ivf_probe_batch": ivf_probe_stream_batch,
            "mwem_step_batch": mwem_step_batch,
-           "gather_score_batch": gather_score_batch}
+           "gather_score_batch": gather_score_batch,
+           "marginal_gather_score": marginal_gather_score}
     failures: list[str] = []
 
     def expect(cond: bool, what: str) -> None:
@@ -516,6 +566,108 @@ def main() -> int:
                    f"single-lane run")
     log(f"small waves: {'ok' if not failures else 'FAILED'}")
 
+    # ------------------- factored kernels at edge shapes: K6, multi-block K2
+    def k6_case(card, cliques, C, signs="both", active_frac=None):
+        """K6 against its plain version; the tolerance is `f32_tol` on each
+        candidate's Σ|v| over its row."""
+        W = MarginalWorkload(card, cliques, device=dev)
+        v = randn(W.U) * 1e-3
+        aug = torch.randint(0, W.m, (C,), generator=g, device=dev)
+        if signs == "both":
+            aug = aug + W.m * torch.randint(0, 2, (C,), generator=g, device=dev)
+        elif signs == "minus":
+            aug = aug + W.m
+        active = None
+        if active_frac is not None:
+            active = torch.rand(C, generator=g, device=dev) < active_frac
+        got = marginal_gather_score(W, v, aug, active)
+        want = marginal_gather_score_ref(W, v, aug, active)
+        mag = marginal_gather_score_ref(W, v.abs(), aug % W.m)
+        err = float((got - want).abs().max()) if C else 0.0
+        ok = err <= f32_tol(W.U, float(mag.max()) if C else 0.0)
+        if active is not None:
+            ok = ok and float(got[~active].abs().sum()) == 0.0
+        expect(ok, f"marginal_gather_score card={card[:6]} U={W.U} "
+               f"kmax={W.kmax} C={C} {signs} active={active_frac}: max err {err}")
+
+    hetero = (3, 5, 7, 2)                                   # U = 210
+    k6_case(hetero, [(0,), (1,), (2,), (3,)], 40)           # kmax 1
+    k6_case(hetero, [(0, 2), (3,), (1, 2, 3), (0, 1)], 60)  # padded arities
+    k6_case(hetero, [(0, 1, 2, 3), (2,), (1, 3)], 80, active_frac=0.5)
+    k6_case(hetero, [(0, 1, 2, 3)], 1)                       # C = 1
+    k6_case(hetero, [(0, 1), (2, 3)], 50, active_frac=0.0)   # nothing active
+    k6_case(hetero, [(0, 1), (1, 2, 3)], 50, signs="minus")
+    k6_case((4, 3, 5, 6, 7, 3), [(0, 5), (1, 2, 4), (3,), (0, 1, 2, 3)], 200,
+            active_frac=0.3)                                 # U = 7560
+    k6_case((2,) * 15, list(itertools.combinations(range(15), 4))[:300], 836,
+            active_frac=0.25)                                # U = 2**15
+    k6_case((2,) * 16, list(itertools.combinations(range(16), 4))[::9], 300,
+            active_frac=0.5)                                 # U = 2**16
+    for u in (MAX_U + 1, 32768, 65536, 100_000):
+        Qs = (torch.rand(9, u, generator=g, device=dev) < 0.3).float()
+        lw = randn(LANES, u)
+        lw = lw - lw.amax(1, keepdim=True)
+        p = torch.softmax(lw, 1)
+        ps = torch.rand(LANES, u, generator=g, device=dev)
+        hb = torch.softmax(randn(LANES, u), 1)
+        sel = torch.randint(0, 9, (LANES,), generator=g, device=dev)
+        noise = 1e-3 * randn(LANES)
+        for rule in ("paper", "signed", "hardt"):
+            reset_counts(ops)
+            got = mwem_step(lw[0], p[0], ps[0], Qs, sel[0], hb[0], noise[0],
+                            rule=rule, eta=0.3)
+            again = mwem_step(lw[0], p[0], ps[0], Qs, sel[0], hb[0], noise[0],
+                              rule=rule, eta=0.3)
+            want = mwem_step_ref(lw[0], p[0], ps[0], Qs, sel[0], hb[0],
+                                 noise[0], rule=rule, eta=0.3)
+            ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-7)
+                     for a, b in zip(got, want))
+            ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = ok and mwem_step.launches_multiblock == 2
+            expect(ok, f"mwem_step multi-block u={u} {rule}")
+            for hh in (hb[0], hb):
+                got = mwem_step_batch(lw, p, ps, Qs, sel, hh, noise, rule=rule,
+                                      eta=0.3)
+                want = mwem_step_batch_ref(lw, p, ps, Qs, sel, hh, noise,
+                                           rule=rule, eta=0.3)
+                ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-7)
+                         for a, b in zip(got, want))
+                for b in range(LANES):  # lane b is the single-lane launch
+                    one = mwem_step(lw[b], p[b], ps[b], Qs, sel[b],
+                                    hh if hh.dim() == 1 else hh[b], noise[b],
+                                    rule=rule, eta=0.3)
+                    ok = ok and all(torch.equal(a[b], c) for a, c in zip(got, one))
+                ok = ok and bool(torch.allclose(got[1].sum(1), torch.ones(
+                    LANES, device=dev), atol=1e-5))
+                expect(ok, f"mwem_step_batch multi-block u={u} {rule} "
+                       f"h{tuple(hh.shape)}")
+    torch.cuda.synchronize()
+    log(f"factored edge shapes: {'ok' if not failures else 'FAILED'}")
+
+    # ------------------------------- small factored release, card vs CPU
+    small_card, small_cl = (3, 2, 4, 2, 3), [
+        (0, 1), (0, 2), (1, 3), (2, 4), (3, 4), (1,), (0, 2, 4), (1, 2, 3)]
+    rng_f = np.random.default_rng([args.seed, 3])
+    h_small = rng_f.dirichlet(np.full(144, 0.4)).astype(np.float32)
+    for kind in ("exact", "flat", "mivf"):
+        cfg = MWEMConfig(T=30, mode="exact" if kind == "exact" else "fast",
+                         n_records=2000)
+        pair = []
+        for where in (dev, torch.device("cpu")):
+            Wf = MarginalWorkload(small_card, small_cl, device=where)
+            index = None
+            if kind == "flat":
+                index = FlatAbsIndex(Wf, device=where)
+            elif kind == "mivf":
+                index = MarginalIVFIndex(Wf, device=where)
+            pair.append(run_mwem(Wf, h_small, cfg, NumpyDraws(args.seed + 3),
+                                 index=index, device=where))
+        a, b = pair
+        same = (a.selected == b.selected and a.n_scored == b.n_scored
+                and torch.allclose(a.p_hat.cpu(), b.p_hat, rtol=1e-4, atol=1e-7))
+        expect(same, f"small factored {kind} release: card and CPU runs differ")
+    log(f"small factored releases: {'ok' if not failures else 'FAILED'}")
+
     # ---------------------------------------------------- main path
     m, T, n_rec = 2 ** args.m_log2, args.T, args.n_records
     t0 = time.perf_counter()
@@ -533,7 +685,7 @@ def main() -> int:
         f"cap={ivf.cap}, nprobe={ivf.nprobe})")
     del Q_np
     flat = FlatAbsIndex(Q, device=dev)
-    launches = {name: 0 for name in KERNELS}
+    launches = dict.fromkeys(read_counts(ops), 0)
     run_counts = {}
     expected = {"exact": {"mwem_step"},
                 "flat": {"mips_topk", "gather_score", "mwem_step"},
@@ -548,7 +700,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res = run_mwem(Q, h, cfg, draws, index=index)
         wall = time.perf_counter() - t0
-        counts = {name: fn.launches for name, fn in ops.items()}
+        counts = read_counts(ops)
         run_counts[kind] = counts
         for name, c in counts.items():
             launches[name] += c
@@ -608,7 +760,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res = run_mwem_batch(Q, hh, cfg, draws, index=index, ledgers=ledgers)
         wall = time.perf_counter() - t0
-        counts = {name: fn.launches for name, fn in ops.items()}
+        counts = read_counts(ops)
         wave_counts[kind] = counts
         for name, c in counts.items():
             launches[name] += c
@@ -644,6 +796,97 @@ def main() -> int:
         index=ivf))
     log(json.dumps({"profile": "wave ivf", "lanes": LANES, **prof,
                     "event_iter_ms": 1e3 * res.total_seconds / T_prof}))
+
+    # ------------------- factored main path: all 4-way marginals, one lane
+    t0 = time.perf_counter()
+    Wm = MarginalWorkload.all_kway((2,) * args.attrs, 4, device=dev)
+    rng_m = np.random.default_rng([args.seed, 4])
+    logits = 2.0 * rng_m.standard_normal(Wm.U)
+    p_true = np.exp(logits - logits.max())
+    h_m = torch.as_tensor(
+        (rng_m.multinomial(n_rec, p_true / p_true.sum()) / n_rec).astype(
+            np.float32)).to(dev)
+    uniform_m = float(Wm.max_err(h_m, torch.full((Wm.U,), 1.0 / Wm.U,
+                                                 device=dev)))
+    mivf = MarginalIVFIndex(Wm, device=dev)
+    torch.cuda.synchronize()
+    log(json.dumps({"factored_workload": {
+        "cliques": Wm.n_cliques, "m": Wm.m, "U": Wm.U, "kmax": Wm.kmax,
+        "dense_nbytes_avoided": Wm.dense_nbytes, "factored_nbytes": Wm.nbytes,
+        "nprobe": mivf.nprobe, "uniform_error": uniform_m,
+        "setup_s": time.perf_counter() - t0}}))
+    expected_f = {"exact": {"mwem_step", "mwem_step:multiblock"},
+                  "flat": {"marginal_gather_score", "mwem_step",
+                           "mwem_step:multiblock"},
+                  "mivf": {"marginal_gather_score", "mwem_step",
+                           "mwem_step:multiblock"}}
+    fruns, fcounts = {}, {}
+    for kind, index in (("exact", None), ("flat", FlatAbsIndex(Wm, device=dev)),
+                        ("mivf", mivf)):
+        cfg = MWEMConfig(eps=1.0, delta=1e-3, T=T, n_records=n_rec,
+                         mode="exact" if kind == "exact" else "fast")
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = run_mwem(Wm, h_m, cfg, TorchDraws.seeded(args.seed + 5, dev),
+                       index=index)
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        fcounts[kind] = counts
+        for name, c in counts.items():
+            launches[name] += c
+        fruns[kind] = res
+        preview = PrivacyLedger().preview(*release_cost(cfg, Wm.m, Wm.U, index))
+        composed = res.ledger.composed()
+        log(json.dumps({"factored_run": kind, "final_error": res.final_error,
+                        "uniform_error": uniform_m,
+                        "mean_n_scored": float(np.mean(res.n_scored)),
+                        "overflow_count": res.overflow_count,
+                        "eps_delta": composed, "preview": preview,
+                        "wall_s": wall,
+                        "mean_iter_ms": 1e3 * float(np.mean(res.iter_seconds)),
+                        "launches": counts}))
+        expect(math.isfinite(res.final_error) and res.final_error < uniform_m,
+               f"factored {kind}: error {res.final_error} not below uniform "
+               f"{uniform_m}")
+        expect(bool(torch.isfinite(res.p_hat).all())
+               and tuple(res.p_hat.shape) == (Wm.U,)
+               and abs(float(res.p_hat.sum()) - 1.0) < 1e-4,
+               f"factored {kind}: p_hat malformed")
+        expect(composed == preview,
+               f"factored {kind}: ledger {composed} != {preview}")
+        for name in expected_f[kind]:
+            expect(counts[name] > 0,
+                   f"factored {kind}: kernel {name} never launched")
+
+    # the adaptive worst-marginal loop on the same workload
+    cfg_a = AdaptiveConfig(eps=1.0, delta=1e-3, T=30, n_records=n_rec)
+    led = PrivacyLedger()
+    t0 = time.perf_counter()
+    ad = run_adaptive_marginals(Wm, h_m, cfg_a,
+                                TorchDraws.seeded(args.seed + 6, dev), ledger=led)
+    ad_err = float(ad.final_error)
+    log(json.dumps({"adaptive": {"T": cfg_a.T, "final_error": ad_err,
+                                 "uniform_error": uniform_m,
+                                 "n_scored": ad.n_scored,
+                                 "eps_delta": [ad.eps_spent, ad.delta_spent],
+                                 "wall_s": time.perf_counter() - t0}}))
+    expect(math.isfinite(ad_err) and tuple(ad.selected.shape) == (cfg_a.T,),
+           f"adaptive: error {ad_err} or selections malformed")
+    expect([e[2] for e in led.events]
+           == ["adaptive_em", "adaptive_measure"] * cfg_a.T
+           and led.composed() == (ad.eps_spent, ad.delta_spent),
+           "adaptive: ledger differs from its events")
+
+    for kind, index in (("exact", None), ("flat", FlatAbsIndex(Wm, device=dev)),
+                        ("mivf", mivf)):
+        cfg = MWEMConfig(T=51, n_records=n_rec,
+                         mode="exact" if kind == "exact" else "fast")
+        res, prof = profile_window(
+            lambda: run_mwem(Wm, h_m, cfg, TorchDraws.seeded(args.seed + 7, dev),
+                             index=index), step_kernel="mwem_step_norm_kernel")
+        log(json.dumps({"profile": f"factored {kind}", **prof, "event_iter_ms":
+                        1e3 * float(np.mean(res.iter_seconds[1:]))}))
 
     # ------------------------------- kernels at the main path's shapes
     p = torch.softmax(torch.zeros(U, device=dev), 0)
@@ -682,7 +925,8 @@ def main() -> int:
          f32_tol(U, float((ivf._cell_rows[probe.long()].abs() @ v.abs()).max())),
          4.0 * n_valid * U + 4 * ivf.nprobe * (ivf._cells8.shape[1] + 1)
          + 4 * U + 8 * k, 2.0 * n_valid * U),
-        ("mwem_step", "mwem_step", None, launches["mwem_step"],
+        ("mwem_step", "mwem_step", None,  # the one-block route's launches
+         launches["mwem_step"] - launches["mwem_step:multiblock"],
          lambda: mwem_step(lw0, p, ps0, Q, sel, h, noise, rule="hardt",
                            eta=math.sqrt(math.log(U) / T)),
          lambda: mwem_step_ref(lw0, p, ps0, Q, sel, h, noise, rule="hardt",
@@ -728,7 +972,8 @@ def main() -> int:
          4.0 * rows_read * U + 4 * LANES * U + 4 * n_unique * cap8
          + 4 * slots.numel() * (1 + LANES) + 8 * LANES * k + 4 * LANES,
          2.0 * pairs * U),
-        ("mwem_step_batch", "mwem_step_batch", None, launches["mwem_step_batch"],
+        ("mwem_step_batch", "mwem_step_batch", None,
+         launches["mwem_step_batch"] - launches["mwem_step_batch:multiblock"],
          lambda: mwem_step_batch(lw_b, p_b, ps_b, Q, sel_b, hb_main, noise_b,
                                  rule="hardt", eta=eta),
          lambda: mwem_step_batch_ref(lw_b, p_b, ps_b, Q, sel_b, hb_main,
@@ -741,6 +986,53 @@ def main() -> int:
          f32_tol(U, float((Q.abs() @ Vb.abs().T).max())),
          4.0 * n_act_b * U + 4 * LANES * U + 13 * LANES * tail_cap,
          2.0 * n_act_b * U),
+    ]
+    # K6 and the multi-block K2 at the factored path's shapes: the probe of
+    # the marginal-IVF release, a tail of tail_cap slots with as many
+    # active as that run's mean tail, the winner row as a (1, U) table.
+    vf = h_m - fruns["mivf"].p_hat
+    k_f = math.ceil(math.sqrt(Wm.m))
+    cap_f = 4 * math.ceil(math.sqrt(2 * Wm.m))
+    n_act_f = max(1, round(float(np.mean(fruns["mivf"].n_scored)) - k_f))
+    aug_f = torch.randint(0, 2 * Wm.m, (cap_f,), generator=rows_gen, device=dev)
+    act_f = torch.zeros(cap_f, dtype=torch.bool, device=dev)
+    act_f[torch.randperm(cap_f, generator=rows_gen, device=dev)[:n_act_f]] = True
+    mag_f = float(marginal_gather_score_ref(Wm, vf.abs(), aug_f % Wm.m).max())
+    sel_f = torch.tensor(fruns["mivf"].selected[-1], device=dev)
+    row_f, id_f = Wm.winner_table(sel_f)
+    lw_f, p_f = torch.zeros(Wm.U, device=dev), torch.full((Wm.U,), 1.0 / Wm.U,
+                                                          device=dev)
+    ps_f = fruns["mivf"].p_hat.clone()
+    eta_f = math.sqrt(math.log(Wm.U) / T)
+    rows_fb = Wm.rows(torch.as_tensor(fruns["mivf"].selected[-LANES:],
+                                      device=dev))
+    sel_fb = torch.arange(LANES, device=dev)
+    lw_fb = torch.zeros(LANES, Wm.U, device=dev)
+    p_fb = torch.softmax(lw_fb, 1)
+    ps_fb = ps_f.expand(LANES, -1).contiguous()
+    noise_fb = torch.full((LANES,), 1e-3, device=dev)
+    n_fast = sum(fcounts[kind]["marginal_gather_score"] for kind in ("flat", "mivf"))
+    cases += [
+        ("marginal_gather_score", "marginal_gather_score", None, n_fast,
+         lambda: marginal_gather_score(Wm, vf, aug_f, act_f),
+         lambda: marginal_gather_score_ref(Wm, vf, aug_f, act_f),
+         f32_tol(Wm.U, mag_f),
+         4.0 * Wm.U + 13 * cap_f + 4 * 3 * Wm.kmax * n_act_f + 8 * n_act_f,
+         1.0 * n_act_f * Wm.U),
+        ("mwem_step:multiblock", "mwem_step:multiblock", None,
+         launches["mwem_step:multiblock"],
+         lambda: mwem_step(lw_f, p_f, ps_f, row_f, id_f, h_m, noise,
+                           rule="hardt", eta=eta_f),
+         lambda: mwem_step_ref(lw_f, p_f, ps_f, row_f, id_f, h_m, noise,
+                               rule="hardt", eta=eta_f),
+         None, 4.0 * 8 * Wm.U + 16, 12.0 * Wm.U),
+        ("mwem_step_batch:multiblock", "mwem_step_batch:multiblock", None,
+         launches["mwem_step_batch:multiblock"],
+         lambda: mwem_step_batch(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_m,
+                                 noise_fb, rule="hardt", eta=eta_f),
+         lambda: mwem_step_batch_ref(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_m,
+                                     noise_fb, rule="hardt", eta=eta_f),
+         None, LANES * (4.0 * 7 * Wm.U + 12) + 4.0 * Wm.U, LANES * 12.0 * Wm.U),
     ]
     rows_out = []
     for row, name, mode, n_launch, kern, plain, tol, nbytes, flops in cases:
@@ -756,7 +1048,7 @@ def main() -> int:
                 ok_b, err_b = same_topk(got[0][b], got[1][b], want[0][b],
                                         want[1][b], tol)
                 ok, err = ok and ok_b, max(err, err_b)
-        elif name.startswith("gather_score"):
+        elif "gather_score" in name:
             err = float((got - want).abs().max())
             ok = err <= tol
         else:
@@ -772,7 +1064,10 @@ def main() -> int:
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         if mode:
             out["mode"] = mode
-        rows_out.append(out)
+        if row in TIMING_ONLY:
+            log(json.dumps({"timing_only": out}))
+        else:
+            rows_out.append(out)
         log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by}), max err {err:.3g}, launches {n_launch}")
 

@@ -3,9 +3,10 @@
 Each function takes arrays of the JAX package as numpy (``np.asarray`` of
 a `jax.Array` is one) and builds the port's counterpart on ``device``, so
 one input can drive both packages: the query matrix and histogram, the
-carried `MWEMState`, and an IVF build (without re-running it). A wave
-carries over the same way: a (B, U) state and a per-lane (B, U) histogram
-keep their shapes, one row a lane. Nothing here imports the JAX package.
+carried `MWEMState`, an IVF build (without re-running it), and a factored
+marginal workload. A wave carries over the same way: a (B, U) state and a
+per-lane (B, U) histogram keep their shapes, one row a lane. Nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.mwem import MWEMState
+from repro_torch.core.workload import MarginalWorkload
 from repro_torch.device import resolve_device
 from repro_torch.mips.ivf import IVFIndex
 
@@ -39,3 +41,15 @@ def ivf_index(vectors, cents, cells, nprobe: int | None = None,
     return IVFIndex.from_tables(np.array(vectors), cents, cells, nprobe=nprobe,
                                 approx_margin=approx_margin,
                                 failure_mass=failure_mass, device=device)
+
+
+def marginal_workload(card, cliques, score_block: int = 512,
+                      clique_chunk: int = 32, device=None) -> MarginalWorkload:
+    """The port's `MarginalWorkload` of the reference's
+    ``MarginalWorkload(card, cliques, score_block=..., clique_chunk=...)``:
+    built by the same mixed-radix construction, so its int32 tables
+    (q_clique, q_offset, cl_dstride, cl_card, cl_stride, cl_cells) equal
+    the reference instance's pytree leaves."""
+    return MarginalWorkload(card, cliques, score_block=score_block,
+                            clique_chunk=clique_chunk, device=device)
+

@@ -10,14 +10,18 @@ accounting, output averaging) is shared.
 iteration forms the probe ``v = h − p``; selects a query — exhaustive
 Gumbel-max over ``|Q v|`` (``mode="exact"``), or the index's top-k plus a
 lazily drawn tail (``mode="fast"``), whose scores come from the
-`gather_score` kernel; on a tail-buffer overflow it redoes the selection
-exhaustively on the fallback stream; then the fused `mwem_step` kernel
-measures the winner, applies the update, renormalizes and accumulates,
-carrying ``(log_w, p, p_sum)`` like the reference's fused route. The one
-host synchronisation per iteration is the read of the overflow flag in
-fast mode. The full (m, U) matrix products of the exhaustive oracle and
+`gather_score` kernel over a dense workload and from the
+`marginal_gather_score` kernel over a factored `MarginalWorkload`; on a
+tail-buffer overflow it redoes the selection exhaustively on the fallback
+stream; then the fused `mwem_step` kernel measures the winner, applies the
+update, renormalizes and accumulates, carrying ``(log_w, p, p_sum)`` like
+the reference's fused route (a factored winner's implicit row is first
+materialized as a (1, U) table, the reference's `mwu_apply` route). The
+one host synchronisation per iteration is the read of the overflow flag
+in fast mode. The full (m, U) matrix products of the exhaustive oracle and
 the error evaluation are left to `torch.matmul`, as the reference leaves
-them to XLA.
+them to XLA; over a factored workload they are the workload's implicit-row
+products and segment sums, and no (m, U) table is built.
 
 Every ε and δ goes to the `PrivacyLedger` through `_record_iteration`, the
 reference's charging path, so `release_cost` previews exactly what a run
@@ -51,7 +55,8 @@ from repro_torch.core.rng import Draws, LaneDraws, TorchDraws
 from repro_torch.core.workload import as_workload
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mwem_step import (gather_score, gather_score_batch,
-                                           mwem_step, mwem_step_batch)
+                                           marginal_gather_score, mwem_step,
+                                           mwem_step_batch)
 
 
 @dataclass(frozen=True)
@@ -249,14 +254,17 @@ def run_mwem(Q, h, cfg: MWEMConfig, draws, index=None,
 
     Args:
       Q: (m, U) query matrix with entries in [0, 1] (array, tensor or
-        `DenseWorkload`); moved to ``device`` if it is not there.
+        `DenseWorkload`), moved to ``device`` if it is not there; or a
+        factored `MarginalWorkload` on ``device``.
       h: (U,) true normalized histogram.
       cfg: engine configuration; ``mode="fast"`` requires ``index``.
       draws: the randomness — a `Draws` implementation, or a
         `torch.Generator` on ``device`` (wrapped in `TorchDraws`).
       index: a k-MIPS index over the complement-augmented queries on the
-        same device (`repro_torch.mips`): ``query(v, k) -> (aug ids, raw
-        scores)`` plus ``approx_margin`` and ``failure_mass``.
+        same device (`repro_torch.mips`; over a `MarginalWorkload` the
+        `FlatAbsIndex` or `MarginalIVFIndex` of it): ``query(v, k) ->
+        (aug ids, raw scores)`` plus ``approx_margin`` and
+        ``failure_mass``.
       device: ``None`` runs on ``cuda`` (raising if absent); pass
         ``"cpu"`` for the plain PyTorch path.
     """
@@ -281,8 +289,12 @@ def run_mwem(Q, h, cfg: MWEMConfig, draws, index=None,
     sel_t = torch.empty(cfg.T, dtype=torch.int64, device=dev)
     n_scored_t = torch.empty(cfg.T, dtype=torch.int64, device=dev)
 
-    def tail_scores(v):
-        return lambda idx, active: gather_score(W.Q, v, idx, active) * cal.scale
+    def tail_scores(v):  # K3 over the rows, or K6 over the factored cells
+        if W.is_dense:
+            return lambda idx, active: (gather_score(W.Q, v, idx, active)
+                                        * cal.scale)
+        return lambda idx, active: (marginal_gather_score(W, v, idx, active)
+                                    * cal.scale)
 
     def exact_select(gumbels, v):  # Alg. 1 oracle: score all m queries
         return exact_em(gumbels, W.scores(v).abs(), cal.eps_em, cal.sensitivity)
@@ -310,7 +322,8 @@ def run_mwem(Q, h, cfg: MWEMConfig, draws, index=None,
                 n_scored_t[t] = out.n_scored
         sel_t[t] = sel
         noise = _measure_noise(draws, t, cfg.update_rule, cal.lap_scale, dev)
-        log_w, p, p_sum = mwem_step(log_w, p, p_sum, W.Q, sel, h, noise,
+        rows, row = W.winner_table(sel)
+        log_w, p, p_sum = mwem_step(log_w, p, p_sum, rows, row, h, noise,
                                     rule=cfg.update_rule, eta=cal.eta)
         if timed:
             marks[-1][1].record()
@@ -359,6 +372,10 @@ def launch_mwem_batch(Q, h, cfg: MWEMConfig, draws, index=None,
     """
     dev = resolve_device(device)
     W = as_workload(Q, dev)
+    if not W.is_dense:
+        raise ValueError("a wave over a factored MarginalWorkload is not "
+                         "ported yet (ROADMAP.md, Queue 1: factored waves); "
+                         "run its lanes one by one with run_mwem")
     h = torch.as_tensor(h, dtype=torch.float32, device=dev)
     m, U = W.m, W.U
     cal = _calibrate(cfg, m, U)

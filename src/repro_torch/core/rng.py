@@ -58,6 +58,12 @@ class Draws(Protocol):
         """0-d f32 standard Laplace draw for the measurement."""
         ...
 
+    def laplace_vector(self, t: int, size: int, device) -> torch.Tensor:
+        """(size,) f32 standard Laplace draws measuring a whole marginal
+        table (`run_adaptive_marginals`), from the same stream position as
+        `laplace` — a run takes one or the other an iteration."""
+        ...
+
 
 def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
     """Standard Gumbel by inversion, with ``u`` kept off 0."""
@@ -106,7 +112,10 @@ class TorchDraws:
         return gumbel_from_uniform(self._rand((n,), device))
 
     def laplace(self, t, device):
-        u = self._rand((), device).clamp_min(_TINY)
+        return self.laplace_vector(t, (), device)
+
+    def laplace_vector(self, t, size, device):
+        u = self._rand(size, device).clamp_min(_TINY)
         return torch.where(u < 0.5, torch.log(2.0 * u),
                            -torch.log(2.0 - 2.0 * u))
 
@@ -159,3 +168,7 @@ class LaneDraws:
 
     def laplace(self, t, device):
         return torch.stack([d.laplace(t, device) for d in self.lanes])
+
+    def laplace_vector(self, t, size, device):
+        return torch.stack([d.laplace_vector(t, size, device)
+                            for d in self.lanes])

@@ -1,5 +1,8 @@
 """Plain PyTorch versions of the fused IVF cell probe (K4) and of the
-wave-batched probe (K5), with the wave's probe planning.
+wave-batched probe (K5), with the wave's probe planning, and the
+clique-structured probe of a factored marginal workload
+(`marginal_probe_topk_ref`, plain PyTorch as it is plain jnp in the
+reference).
 
 Single probe: candidates are laid out probe-major, slot-minor — the order
 the kernel and the reference's stable merge rank exact ties in — and
@@ -114,3 +117,45 @@ def ivf_probe_stream_batch_ref(slots: torch.Tensor, member: torch.Tensor,
     ids, top_s = _pad_topk(ids.to(torch.int32), top_s, k)
     n_valid = (in_lane * valid.sum(1)[None, :]).sum(1).to(torch.int32)
     return ids, top_s, n_valid
+
+
+def marginal_probe_topk_ref(tabs: torch.Tensor, cl_cells: torch.Tensor,
+                            starts: torch.Tensor, m: int, k: int, nprobe: int):
+    """Clique-structured probe of a factored marginal workload: the
+    `ivf_probe` dataflow with the workload's own cliques as cells.
+
+    The per-clique marginal tables of the probe vector already hold every
+    query's exact score, so a clique's "centroid" statistic is its max
+    |cell| — an exact bound — and the probe's top-k is exact whenever the
+    ``nprobe`` best cliques cover k candidates. Both rankings are stable
+    descending sorts (ties to the lower clique, then the lower cell, as
+    ``lax.top_k``); pad cells are −inf.
+
+    Args:
+      tabs: (n_cliques, max_cells) f32 marginals of ``v``
+        (`MarginalWorkload.marginal_tables`).
+      cl_cells: (n_cliques,) int32 valid cell counts.
+      starts: (n_cliques,) first query id of each clique.
+      m: query count (augmented-id encoding); k / nprobe: top-k size and
+        probed cliques.
+
+    Returns ``(aug ids int32 (k,), |scores| f32 (k,), n_scored int32 ())``
+    — augmented ids under the §3.4 sign convention and the number of valid
+    candidate cells the probe scored.
+    """
+    nc, mc = tabs.shape
+    cells = torch.arange(mc, device=tabs.device)
+    valid = cells[None, :] < cl_cells[:, None]
+    a = torch.where(valid, tabs.abs(), -math.inf)
+    cstat = a.amax(dim=1)                              # exact per-clique bound
+    probe = torch.sort(cstat, descending=True, stable=True).indices[:nprobe]
+    cand_s = tabs[probe].reshape(-1)                   # signed, probe-major
+    cand_valid = valid[probe]
+    qid = (starts[probe].to(torch.int64)[:, None] + cells[None, :]).reshape(-1)
+    flat_a = torch.where(cand_valid.reshape(-1), cand_s.abs(), -math.inf)
+    top_a, pos = torch.sort(flat_a, descending=True, stable=True)
+    top_a, pos = top_a[:k], pos[:k]
+    qid_top = qid[pos]
+    aug = torch.where(cand_s[pos] >= 0, qid_top, qid_top + m)
+    return (aug.to(torch.int32), top_a,
+            cand_valid.sum().to(torch.int32))

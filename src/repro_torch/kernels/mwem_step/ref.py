@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the fused MWEM step (K2) and the lazy-EM tail
-scorer (K3).
+scorers (K3 over a row table, K6 over a factored marginal workload).
 
 `mwu_apply_ref` is the multiplicative-weights update expression of
 `repro.kernels.mwem_step.ref`, op for op: every update ends with
@@ -78,3 +78,27 @@ def gather_score_batch_ref(q_rows, V, aug_idx, active=None):
         gather_score_ref(q_rows, V[b], aug_idx[b],
                          None if active is None else active[b])
         for b in range(aug_idx.shape[0])])
+
+
+def marginal_gather_score_ref(W, v, aug_idx, active=None):
+    """``sign · ⟨q_{j % m}, v⟩`` for augmented ids ``j`` of a factored
+    marginal workload ``W``: each candidate's one-hot row is rebuilt from
+    its clique's mixed-radix parameters, ``cm(u) == offset`` with
+    ``cm(u) = Σ_a ((u // dstride_a) % card_a) · cstride_a``; 0 where
+    ``active`` is False."""
+    aug = aug_idx.to(torch.int64)
+    base = torch.remainder(aug, W.m)
+    sign = torch.where(aug < W.m, 1.0, -1.0).to(torch.float32)
+    cl = W.q_clique[base].to(torch.int64)
+    u = torch.arange(W.U, dtype=torch.int32, device=v.device)[None, :]
+    cm = torch.zeros((aug.shape[0], W.U), dtype=torch.int32, device=v.device)
+    for a in range(W.kmax):
+        ds = W.cl_dstride[cl, a][:, None]
+        cm += (torch.remainder(torch.div(u, ds, rounding_mode="floor"),
+                               W.cl_card[cl, a][:, None])
+               * W.cl_stride[cl, a][:, None])
+    row = (cm == W.q_offset[base][:, None]).to(torch.float32)
+    out = (row @ v) * sign
+    if active is not None:
+        out = torch.where(active, out, torch.zeros_like(out))
+    return out

@@ -3,5 +3,7 @@
 from repro_torch.mips.base import MIPSIndex, augment_complement
 from repro_torch.mips.flat import FlatAbsIndex
 from repro_torch.mips.ivf import IVFIndex
+from repro_torch.mips.marginal import MarginalIVFIndex
 
-__all__ = ["FlatAbsIndex", "IVFIndex", "MIPSIndex", "augment_complement"]
+__all__ = ["FlatAbsIndex", "IVFIndex", "MIPSIndex", "MarginalIVFIndex",
+           "augment_complement"]

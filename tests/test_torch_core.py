@@ -50,7 +50,10 @@ class JaxDraws:
     the 4-way split of `lazy_em_from_topk` (top-k Gumbels, binomial, tail
     randint, tail uniforms), the key itself for the exhaustive Gumbels,
     `lazy_em.fallback_key` of it for the overflow redo, and
-    ``meas_keys[t]`` for the Laplace draw. The binomial is drawn from the
+    ``meas_keys[t]`` for the Laplace draw — a scalar for `run_mwem`, a
+    ``(size,)`` vector for the table measurement of
+    `run_adaptive_marginals`, whose rounds walk the same
+    ``key → (key, k_sel, k_meas)`` chain. The binomial is drawn from the
     port's own ``p``.
     """
 
@@ -91,6 +94,9 @@ class JaxDraws:
 
     def laplace(self, t, device):
         return _t(jax.random.laplace(self.meas_keys[t])).to(device)
+
+    def laplace_vector(self, t, size, device):
+        return _t(jax.random.laplace(self.meas_keys[t], (size,))).to(device)
 
 
 # --------------------------------------------------------------- accountant
@@ -256,6 +262,9 @@ class TestLazyEM:
         lap = torch.stack([d.laplace(0, CPU) for _ in range(4000)])
         assert torch.isfinite(lap).all()
         assert abs(float(lap.mean())) < 0.1 and abs(float(lap.var()) - 2) < 0.3
+        lap = d.laplace_vector(0, 4000, CPU)
+        assert lap.shape == (4000,) and torch.isfinite(lap).all()
+        assert abs(float(lap.mean())) < 0.1 and abs(float(lap.var()) - 2) < 0.3
 
 
 # ------------------------------------------------------------------ queries
@@ -313,6 +322,8 @@ class TestBoundary:
     def test_package_imports_without_jax(self):
         code = ("import sys; sys.modules['jax'] = None; "
                 "import repro_torch.core, repro_torch.mips, repro_torch.convert, "
+                "repro_torch.core.adaptive, repro_torch.core.workload, "
+                "repro_torch.mips.marginal, "
                 "repro_torch.kernels.mips_topk, repro_torch.kernels.ivf_probe, "
                 "repro_torch.kernels.mwem_step; "
                 "assert not any(m == 'repro' or m.startswith('repro.') "
