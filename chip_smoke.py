@@ -59,6 +59,28 @@
    K2 and K3 at the wave's shapes, K6 and the multi-block K2 at the
    factored path's — and times each with CUDA events.
 
+9. The LM serving tier (`repro_torch.models.LM` under
+   `repro_torch.serve.engine.ServeEngine`): holds K8 (flash attention) and
+   K9 (the SSD scan) to their plain versions at edge shapes (four masks,
+   GQA groups 1/3/8, head dims 12 to 128, ragged Sq and Skv, decode rows at
+   a cache position with the kv range split, a softcap, rows that see no
+   key, bf16 and f32; ragged SSD chunks, y and the final state); serves the
+   two smoke configurations on the card and on the CPU with the same f32
+   weights (logits, and tokens under the margin rule); then serves
+   llama3.2-3b at its published widths and depth (28 layers, bf16, random
+   weights from ``--seed``): 8 greedy requests with prompts of 256–2048
+   tokens and 32 new tokens plus one short request that refills a freed
+   slot, in waves of 4 — K8 launched 28 times a prefill and a decode step,
+   finite logits, decode logits equal to the prefill of the extended prompt
+   on two requests — and mamba2-130m (24 layers, prompts of 256–1024, K9
+   launched 24 times a prefill); profiles one prefill and one decode window
+   of each (the ``serve/engine/*`` ranges); and times K8 at the prefill and
+   decode shapes and K9 at the prefill shape beside their plain versions
+   and, for K8, `scaled_dot_product_attention` as the library yardstick.
+   Before that, right after step 6's small waves, IVF waves of 17 and 24
+   lanes (more than one K5 launch takes) must equal their lanes run one by
+   one.
+
 It needs one CUDA device and exits non-zero, printing no result, without
 one. The last lines are the card, the per-kernel JSON line and the result.
 """
@@ -82,10 +104,15 @@ sys.path.insert(0, str(ROOT / "src"))
 U = 2 ** 14  # fastmwem-synth's domain, src/repro/configs/fastmwem_synth.py:17
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+LLAMA, MAMBA = "llama3.2-3b", "mamba2-130m"
+LM_BATCH, LM_NEW_TOKENS = 4, 32            # requests a wave, tokens each
+LLAMA_PROMPTS, MAMBA_PROMPTS = (256, 2048), (256, 1024)  # prompt lengths
 LANES = 8  # the serving tier's wave, src/repro/serve/release_service.py:218
 KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score",
            "ivf_probe_batch", "mwem_step_batch", "gather_score_batch",
-           "marginal_gather_score", "mwem_step:multiblock")
+           "marginal_gather_score", "mwem_step:multiblock",
+           "flash_attention", "flash_attention:decode", "ssd_scan")
 # Timed and checked like a kernel of the list, but no main path runs it yet
 # (a factored wave is not ported): its line is logged, not in the result.
 TIMING_ONLY = ("mwem_step_batch:multiblock",)
@@ -100,6 +127,10 @@ REPLACES = {
     "marginal_gather_score": "src/repro/kernels/mwem_step/mwem_step.py:189",
     "mwem_step:multiblock": "src/repro/kernels/mwem_step/mwem_step.py:103",
     "mwem_step_batch:multiblock": "src/repro/kernels/mwem_step/mwem_step.py:103",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:112",
+    "flash_attention:decode":
+        "src/repro/kernels/flash_attention/flash_attention.py:112",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:65",
 }
 SOURCES = {
     "mips_topk": "src/repro_torch/csrc/mips_topk.cu",
@@ -112,6 +143,9 @@ SOURCES = {
     "marginal_gather_score": "src/repro_torch/csrc/mwem_step.cu",
     "mwem_step:multiblock": "src/repro_torch/csrc/mwem_step.cu",
     "mwem_step_batch:multiblock": "src/repro_torch/csrc/mwem_step.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention:decode": "src/repro_torch/csrc/flash_attention.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
 }
 
 
@@ -174,8 +208,9 @@ def time_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
 
 
@@ -246,18 +281,20 @@ def card_line() -> str:
 
 def reset_counts(ops) -> None:
     for fn in ops.values():
-        fn.launches = 0
-        if hasattr(fn, "launches_multiblock"):
-            fn.launches_multiblock = 0
+        for attr in [a for a in vars(fn) if a.startswith("launches")]:
+            setattr(fn, attr, 0)
 
 
 def read_counts(ops) -> dict:
-    """Each kernel's launches since `reset_counts`; the multi-block route
-    of K2 under its own row name."""
-    counts = {name: fn.launches for name, fn in ops.items()}
+    """Each kernel's launches since `reset_counts`; a route a wrapper
+    counts apart (``launches_<route>``: K2's multi-block route, K8's
+    decode route) under its own row name ``<kernel>:<route>``."""
+    counts = {}
     for name, fn in ops.items():
-        if hasattr(fn, "launches_multiblock"):
-            counts[f"{name}:multiblock"] = fn.launches_multiblock
+        counts[name] = fn.launches
+        for attr, value in vars(fn).items():
+            if attr.startswith("launches_"):
+                counts[f"{name}:{attr[len('launches_'):]}"] = value
     return counts
 
 
@@ -292,6 +329,471 @@ def profile_window(run, step_kernel: str = "mwem_step_kernel") -> tuple:
                  "busy_share": busy_ms / window_ms,
                  "device_ops_per_iter": len(inside) / n_it,
                  "top": [[name[:60], us / 1e3 / n_it] for name, us in top]}
+
+
+# ------------------------------------------------------ the LM serving tier
+
+class Metered:
+    """A model proxy for `ServeEngine` that counts its prefill and decode
+    calls, times each by CUDA events on the card, tracks whether every
+    logits row was finite and, when asked, keeps each call's logits on the
+    host."""
+
+    def __init__(self, model, keep_logits: bool = False):
+        import torch
+
+        self.model = model
+        self.device = model.device
+        self.keep_logits = keep_logits
+        self.calls = {"prefill": [], "decode": []}   # (start, end, tokens)
+        self.logits = []
+        self.finite = torch.ones((), dtype=torch.bool, device=model.device)
+
+    def _timed(self, kind, n_tokens, fn, *args, **kw):
+        import torch
+
+        on_card = self.device.type == "cuda"
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        logits, cache = fn(*args, **kw)
+        if on_card:
+            end.record()
+            self.calls[kind].append((start, end, n_tokens))
+        self.finite &= torch.isfinite(logits).all()
+        if self.keep_logits:
+            self.logits.append(logits.float().cpu().numpy())
+        return logits, cache
+
+    def prefill(self, batch, max_len=None):
+        return self._timed("prefill", batch["tokens"].numel(),
+                           self.model.prefill, batch, max_len=max_len)
+
+    def decode_step(self, cache, tokens, pos):
+        return self._timed("decode", tokens.shape[0], self.model.decode_step,
+                           cache, tokens, pos)
+
+    def summary(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for kind, calls in self.calls.items():
+            ms = sum(a.elapsed_time(b) for a, b, _ in calls)
+            toks = sum(n for _, _, n in calls)
+            out[kind] = {"calls": len(calls), "device_ms": ms, "tokens": toks,
+                         "tokens_per_s": 1e3 * toks / ms if ms else None,
+                         "ms_per_call": ms / len(calls) if calls else None}
+        return out
+
+
+def same_greedy_serving(ref_logits, logits, margin: float,
+                        tol: float) -> tuple[bool, int, float]:
+    """The margin rule over two engines' logits, call by call: while every
+    row's reference top-1 beats its runner-up by more than ``margin``, the
+    argmax must agree and the logits lie within ``tol``; a row under the
+    margin ends the comparison (the runs may part there). Returns (ok,
+    calls compared, max |Δlogit|)."""
+    err, n = 0.0, 0
+    for a, b in zip(ref_logits, logits):
+        top2 = np.sort(a, axis=-1)[:, -2:]
+        if ((top2[:, 1] - top2[:, 0]) <= margin).any():
+            break
+        if a.shape != b.shape or not (a.argmax(-1) == b.argmax(-1)).all():
+            return False, n, math.inf
+        err = max(err, float(np.abs(a - b).max()))
+        n += 1
+    scale = max(1.0, max(float(np.abs(a).max()) for a in ref_logits))
+    return n > 0 and err <= tol * scale, n, err
+
+
+def lm_edge_shapes(dev, g, expect) -> None:
+    """K8 and K9 against their plain versions on the card at edge shapes.
+    Tolerances: f32 rtol/atol 2e-4 (the reference's kernel tests: an online
+    softmax or a chunked scan against one pass, sums in another order; the
+    scan's atol scaled by the output's magnitude); bf16 2e-2 (outputs
+    rounded to 8 mantissa bits)."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    # (B, Hq, Hkv, Sq, Skv, D, mode, window, q_offset, softcap)
+    cases = [
+        (2, 4, 4, 100, 100, 64, "full", 0, 0, 0.0),         # GQA 1
+        (1, 24, 8, 257, 257, 128, "causal", 0, 0, 0.0),     # GQA 3, llama heads
+        (2, 16, 2, 70, 130, 64, "causal", 0, 60, 0.0),      # GQA 8, continuation
+        (1, 8, 1, 129, 129, 128, "window", 33, 0, 0.0),
+        (1, 6, 2, 150, 150, 64, "chunk", 40, 0, 0.0),
+        (3, 24, 8, 1, 2112, 128, "causal", 0, 1500, 0.0),   # decode, kv split
+        (2, 8, 1, 1, 700, 128, "window", 100, 650, 0.0),    # decode, GQA 8
+        (2, 12, 3, 4, 300, 64, "causal", 0, 296, 0.0),      # 16 rows of Sq 4
+        (1, 4, 2, 45, 77, 12, "causal", 0, 0, 0.0),         # smoke head dim
+        (1, 4, 1, 50, 50, 100, "causal", 0, 0, 30.0),       # ragged D, softcap
+        (1, 2, 1, 4, 30, 64, "chunk", 16, 40, 0.0),         # rows see no key
+    ]
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        for B, Hq, Hkv, Sq, Skv, D, mode, window, off, cap in cases:
+            q = (randn(B, Hq, Sq, D) * (4.0 if cap else 1.0)).to(dtype)
+            k, v = randn(B, Hkv, Skv, D).to(dtype), randn(B, Hkv, Skv, D).to(dtype)
+            kw = dict(mode=mode, window=window, q_offset=off, logit_softcap=cap)
+            got, want = flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            ok = got.dtype == dtype and torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol)
+            if mode == "chunk" and off == 40:  # no key visible: exact zeros
+                ok = ok and not bool(got.any())
+            expect(ok, f"flash_attention {dtype} B={B} Hq={Hq} Hkv={Hkv} "
+                   f"Sq={Sq} Skv={Skv} D={D} {mode} w={window} off={off} "
+                   f"cap={cap}: max err {err}")
+    # (B, S, H, P, N, chunk)
+    for B, S, H, P, N, chunk in ((2, 37, 3, 8, 12, 8), (1, 100, 2, 64, 128, 64),
+                                 (2, 130, 4, 16, 16, 16), (1, 64, 1, 128, 128, 64),
+                                 (3, 5, 2, 4, 4, 64), (4, 1000, 24, 64, 128, 64)):
+        x, Bm, Cm = randn(B, S, H, P), randn(B, S, N), randn(B, S, N)
+        dt = 0.01 + 0.49 * torch.rand(B, S, H, generator=g, device=dev)
+        A = -(0.1 + 1.9 * torch.rand(H, generator=g, device=dev))
+        got = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        want = ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, max(8, S)))
+        ok, err = True, 0.0
+        for a, b in zip(got, want):
+            scale = max(1.0, float(b.abs().max()))
+            err = max(err, float((a - b).abs().max()) / scale)
+            ok = ok and torch.allclose(a, b, rtol=2e-4, atol=2e-4 * scale)
+        expect(ok, f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk}: "
+               f"max err / scale {err}")
+    torch.cuda.synchronize()
+
+
+def small_lm_card_vs_cpu(dev, seed, expect) -> None:
+    """Both smoke configurations in f32 with the same weights on the card
+    and on the CPU: prefill and decode logits within rtol/atol 1e-4 (f32
+    sums in another order through two layers), and a greedy serving run
+    with a refill under the margin rule (1e-3)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cpu = torch.device("cpu")
+    for arch in (LLAMA, MAMBA):
+        cfg = get_smoke_config(arch).with_(dtype="float32")
+        on_cpu = build_model(cfg).init(seed, device=cpu)
+        on_card = build_model(cfg).load(on_cpu.state_dict(), device=dev)
+        toks = np.random.default_rng([seed, 17]).integers(0, cfg.vocab_size,
+                                                          (3, 21))
+        err = 0.0
+        lc, cc = on_cpu.prefill({"tokens": torch.as_tensor(toks[:, :17])},
+                                max_len=24)
+        lg, cg = on_card.prefill({"tokens": torch.as_tensor(toks[:, :17]).to(dev)},
+                                 max_len=24)
+        pairs = [(lc, lg)]
+        for t in range(17, 21):
+            col = torch.as_tensor(toks[:, t:t + 1])
+            lc, cc = on_cpu.decode_step(cc, col, t)
+            lg, cg = on_card.decode_step(cg, col.to(dev), t)
+            pairs.append((lc, lg))
+        ok = True
+        for a, b in pairs:
+            err = max(err, float((a - b.cpu()).abs().max()))
+            ok = ok and torch.allclose(a, b.cpu(), rtol=1e-4, atol=1e-4)
+        runs = []
+        for model in (on_cpu, on_card):
+            proxy = Metered(model, keep_logits=True)
+            reqs = [Request(prompt=list(p), max_new_tokens=n) for p, n in
+                    (([1, 2, 3], 2), ([4, 5, 6, 7, 8], 9), ([7, 8], 4),
+                     ([9] * 11, 5))]
+            engine = ServeEngine(proxy, batch_size=2, max_len=32, seed=seed,
+                                 device=model.device)
+            engine.run(reqs)
+            runs.append((reqs, engine, proxy.logits))
+        (r_cpu, e_cpu, l_cpu), (r_card, e_card, l_card) = runs
+        same, n, serr = same_greedy_serving(l_cpu, l_card, 1e-3, 1e-4)
+        if n == len(l_cpu):
+            same = same and [r.out_tokens for r in r_cpu] == [
+                r.out_tokens for r in r_card] and e_cpu.refill_count == \
+                e_card.refill_count >= 1
+        log(json.dumps({"small_lm": arch, "logit_max_err": err,
+                        "serve_calls_compared": n, "serve_calls": len(l_cpu),
+                        "serve_max_err": serr, "refills": e_card.refill_count}))
+        expect(ok, f"small {arch}: card and CPU logits differ by {err}")
+        expect(same, f"small {arch}: card and CPU serving differ "
+               f"({n} of {len(l_cpu)} calls compared, max err {serr})")
+
+
+def serve_full(arch, dev, seed, lens, new_tokens, max_len, expect, ops,
+               short=None) -> dict:
+    """Serve requests with prompts of ``lens`` tokens (and the ``short``
+    (prompt length, new tokens) request fifth in the queue, the head of the
+    queue once the first wave is formed) on ``arch`` at its published
+    widths, in waves of 4. Returns the run's record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng([seed, 16, len(lens)])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, int(n)).tolist(),
+                    max_new_tokens=new_tokens) for n in lens]
+    if short is not None:
+        reqs.insert(4, Request(prompt=rng.integers(0, cfg.vocab_size,
+                                                   short[0]).tolist(),
+                               max_new_tokens=short[1]))
+    meter = Metered(model)
+    engine = ServeEngine(meter, batch_size=4, max_len=max_len, seed=seed,
+                         device=dev)
+    torch.cuda.synchronize()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(ops)
+    summ = meter.summary()
+    n_pre, n_dec = summ["prefill"]["calls"], summ["decode"]["calls"]
+    rec = {"serve": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": sum(p.numel() for p in model.parameters()),
+           "init_s": init_s, "requests": len(reqs),
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "new_tokens": [len(r.out_tokens) for r in reqs],
+           "refills": engine.refill_count, "wall_s": wall,
+           "prefill": summ["prefill"], "decode": summ["decode"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: counts[k] for k in
+                        ("flash_attention", "flash_attention:decode", "ssd_scan")}}
+    log(json.dumps(rec))
+    expect(bool(meter.finite), f"{arch}: non-finite logits")
+    expect(all(r.done and len(r.out_tokens) == r.max_new_tokens for r in reqs),
+           f"{arch}: a request was not served in full")
+    expect(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+           f"{arch}: a token outside the vocabulary")
+    if arch == LLAMA:
+        expect(counts["flash_attention"] == cfg.n_layers * (n_pre + n_dec)
+               and counts["ssd_scan"] == 0,
+               f"{arch}: K8 launched {counts['flash_attention']} times, "
+               f"not {cfg.n_layers} x ({n_pre} + {n_dec})")
+        expect(counts["flash_attention:decode"] == cfg.n_layers * n_dec,
+               f"{arch}: K8's decode route launched "
+               f"{counts['flash_attention:decode']} times")
+    else:
+        expect(counts["ssd_scan"] == cfg.n_layers * n_pre
+               and counts["flash_attention"] == 0,
+               f"{arch}: K9 launched {counts['ssd_scan']} times, not "
+               f"{cfg.n_layers} x {n_pre}")
+    if short is not None:
+        expect(engine.refill_count >= 1, f"{arch}: no slot was refilled")
+    # decode at position S against the prefill of the prompt extended by
+    # the decoded token, on two requests. bf16 tolerance: relative L2 error
+    # of the logits ≤ 2**-4 (one bf16 rounding is 2**-9; the two routes
+    # round in other places through every layer).
+    rel = []
+    for r in reqs[:2]:
+        p, tok = r.prompt, r.out_tokens[0]
+        _, cache = model.prefill({"tokens": torch.tensor([p], device=dev)},
+                                 max_len=len(p) + 1)
+        ld, _ = model.decode_step(cache, torch.tensor([[tok]], device=dev), len(p))
+        lp, _ = model.prefill({"tokens": torch.tensor([p + [tok]], device=dev)})
+        rel.append(float((ld - lp).norm() / lp.norm()))
+    log(json.dumps({"decode_vs_prefill": arch, "relative_l2": rel}))
+    expect(all(e <= 2 ** -4 for e in rel),
+           f"{arch}: decode and prefill logits differ (relative L2 {rel})")
+    rec["model"], rec["reqs"] = model, reqs
+    return rec
+
+
+def profile_lm(model, dev, prompts, max_len, steps: int = 8) -> None:
+    """One profiled prefill of a wave of ``prompts`` and ``steps`` profiled
+    decode steps, each under its ``serve/engine/*`` range. For each: host
+    time in the range, the device's busy time (kernels, copies and fills)
+    over the window from the first device operation's start to the last
+    one's end, and the top device operations."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    width = max(len(p) for p in prompts)
+    tokens = torch.zeros((len(prompts), width), dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, width - len(p):] = torch.tensor(p)
+    tokens = tokens.to(dev)
+
+    def summarise(prof, name, n):
+        evs = prof.events()
+        gpu = [e for e in evs if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("serve/")]  # not the ranges' spans
+        host = [e for e in evs if e.name == name and e.device_type == DeviceType.CPU]
+        w0 = min(e.time_range.start for e in gpu)
+        w1 = max(e.time_range.end for e in gpu)
+        busy = {}
+        for e in gpu:
+            busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        busy_ms = sum(busy.values()) / 1e3
+        log(json.dumps({"profile": f"{model.cfg.name} {name}", "calls": n,
+                        "host_ms_per_call": sum(e.time_range.elapsed_us()
+                                                for e in host) / 1e3 / n,
+                        "device_busy_ms_per_call": busy_ms / n,
+                        "window_ms_per_call": (w1 - w0) / 1e3 / n,
+                        "busy_share": busy_ms / ((w1 - w0) / 1e3),
+                        "device_ops_per_call": len(gpu) / n,
+                        "top": [[k[:70], us / 1e3 / n] for k, us in top]}))
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        with record_function("serve/engine/prefill"):
+            logits, cache = model.prefill({"tokens": tokens}, max_len=max_len)
+        torch.cuda.synchronize()
+    summarise(prof, "serve/engine/prefill", 1)
+    tok = logits.argmax(-1)[:, None]
+    with profile(activities=acts) as prof:
+        for i in range(steps):
+            with record_function("serve/engine/decode"):
+                logits, cache = model.decode_step(cache, tok, width + i)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+    summarise(prof, "serve/engine/decode", steps)
+
+
+def lm_phases(args, dev, expect, ops) -> list:
+    """Step 9's serving phases after the edge shapes; returns the kernel
+    rows of K8 (prefill and decode shapes) and K9."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    small_lm_card_vs_cpu(dev, args.seed, expect)
+    log(f"small LM, card vs CPU: {'ok' if not expect.failures else 'FAILED'}")
+    rng = np.random.default_rng([args.seed, 18])
+    runs = {}
+    for arch, (lo, hi), short in ((LLAMA, LLAMA_PROMPTS, (64, 4)),
+                                  (MAMBA, MAMBA_PROMPTS, None)):
+        run = serve_full(arch, dev, args.seed, rng.integers(lo, hi + 1, 8),
+                         LM_NEW_TOKENS, hi + 64, expect, ops, short=short)
+        profile_lm(run.pop("model"), dev, [r.prompt for r in run["reqs"][:4]],
+                   hi + 64)
+        torch.cuda.empty_cache()
+        runs[arch] = run
+    log(f"LM serving: {'ok' if not expect.failures else 'FAILED'}")
+
+    # ------------------------- K8 and K9 at the main path's shapes, timed:
+    # llama's first wave (its padded prompt, its last decode position) and
+    # mamba's first wave, on random inputs of those shapes
+    lcounts, mcounts = runs[LLAMA]["launches"], runs[MAMBA]["launches"]
+    cfg_l, cfg_m = get_config(LLAMA), get_config(MAMBA)
+    S_pre = max(runs[LLAMA]["prompt_lens"][:LM_BATCH])
+    pos_dec = S_pre + LM_NEW_TOKENS - 1
+    S_m = max(runs[MAMBA]["prompt_lens"][:LM_BATCH])
+    g = torch.Generator(device=dev).manual_seed(args.seed + 19)
+    bf = torch.bfloat16
+    B, L = LM_BATCH, LLAMA_PROMPTS[1] + 64
+    Hq, Hkv, D = cfg_l.n_heads, cfg_l.n_kv_heads, cfg_l.resolved_head_dim
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    q, k, v = (randn(B, h, S_pre, D, dtype=bf) for h in (Hq, Hkv, Hkv))
+    qd = randn(B, Hq, 1, D, dtype=bf)
+    kc, vc = randn(B, Hkv, L, D, dtype=bf), randn(B, Hkv, L, D, dtype=bf)
+    kp, vp = kc[:, :, :pos_dec + 1].contiguous(), vc[:, :, :pos_dec + 1].contiguous()
+    H = cfg_m.ssm_expand * cfg_m.d_model // cfg_m.ssm_headdim
+    P, N, Q = cfg_m.ssm_headdim, cfg_m.ssm_state, cfg_m.ssm_chunk
+    xs, Bs, Cs = randn(B, S_m, H, P), randn(B, S_m, N), randn(B, S_m, N)
+    dts = 0.01 + 0.49 * torch.rand(B, S_m, H, generator=g, device=dev)
+    As = -(0.1 + 1.9 * torch.rand(H, generator=g, device=dev))
+    pairs_pre = B * Hq * S_pre * (S_pre + 1) / 2   # causal (query, key) pairs
+    pairs_dec = B * Hq * (pos_dec + 1)
+    chunks = -(-S_m // Q)
+
+    def sdpa(qq, kk, vv, causal):
+        return F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                              enable_gqa=True)
+
+    cases = [  # (row, launches, kernel, plain, library, tol, bytes, flops, peak)
+        ("flash_attention",
+         lcounts["flash_attention"] - lcounts["flash_attention:decode"],
+         lambda: flash_attention(q, k, v, mode="causal"),
+         lambda: attention_ref(q, k, v, mode="causal"),
+         lambda: sdpa(q, k, v, True), 2e-2,
+         2.0 * (2 * B * Hq * S_pre * D + 2 * B * Hkv * S_pre * D),
+         4.0 * D * pairs_pre, BF16_FLOP_PER_S),
+        ("flash_attention:decode", lcounts["flash_attention:decode"],
+         lambda: flash_attention(qd, kc, vc, mode="causal", q_offset=pos_dec),
+         lambda: attention_ref(qd, kc, vc, mode="causal", q_offset=pos_dec),
+         lambda: sdpa(qd, kp, vp, False), 2e-2,
+         2.0 * (2 * B * Hq * D + 2 * B * Hkv * (pos_dec + 1) * D),
+         4.0 * D * pairs_dec, BF16_FLOP_PER_S),
+        ("ssd_scan", mcounts["ssd_scan"],
+         lambda: ssd_scan(xs, dts, As, Bs, Cs, chunk=Q),
+         lambda: ssd_chunked(xs, dts, As, Bs, Cs, chunk=Q), None, 2e-4,
+         4.0 * (2 * B * S_m * H * P + B * S_m * H + H + 2 * B * S_m * N
+                + B * H * P * N),
+         B * H * chunks * (2.0 * Q * Q * N + 2.0 * Q * Q * P + 4.0 * Q * P * N),
+         F32_FLOP_PER_S),
+    ]
+    rows = []
+    for row, n_launch, kern, plain, lib, tol, nbytes, flops, peak in cases:
+        got, want = kern(), plain()
+        if row == "ssd_scan":
+            scale = max(1.0, float(want[0].abs().max()), float(want[1].abs().max()))
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            ok = all(torch.allclose(a, b, rtol=tol, atol=tol * scale)
+                     for a, b in zip(got, want))
+        else:
+            err = float((got.float() - want.float()).abs().max())
+            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        expect(ok, f"{row} at main-path shapes: max err {err} (tol {tol})")
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        lib_ms = time_ms(lib) if lib is not None else None
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        rows.append({"name": row, "route": "cuda", "source": SOURCES[row],
+                     "replaces": REPLACES[row], "launches": n_launch,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}")
+    log(json.dumps({"lm_timing_shapes": {
+        "flash_attention": [B, Hq, Hkv, S_pre, S_pre, D],
+        "flash_attention:decode": [B, Hq, Hkv, 1, L, D, pos_dec],
+        "ssd_scan": [B, S_m, H, P, N, Q]}}))
+    return rows
+
+
+def wide_ivf_waves(dev, seed, Qs_np, hs_np, expect, ops) -> None:
+    """IVF waves of 17 and 24 lanes — more than one K5 launch scores — on
+    the small input: every lane equals the card's single-lane `run_mwem`
+    with its draws, and K5 ran once a 16-lane group an iteration."""
+    from repro_torch.core import MWEMConfig, run_mwem, run_mwem_batch
+    from repro_torch.kernels.ivf_probe import MAX_LANES
+    from repro_torch.mips import IVFIndex, augment_complement
+
+    index = IVFIndex(augment_complement(Qs_np), seed=0, device=dev)
+    cfg = MWEMConfig(T=30, mode="fast", n_records=500)
+    for lanes in (17, 24):
+        reset_counts(ops)
+        res = run_mwem_batch(Qs_np, hs_np, cfg,
+                             [NumpyDraws(seed + 300 + b) for b in range(lanes)],
+                             index=index)
+        n5 = read_counts(ops)["ivf_probe_batch"]
+        expect(n5 == cfg.T * -(-lanes // MAX_LANES),
+               f"IVF wave B={lanes}: K5 launched {n5} times")
+        for lane, r in enumerate(res.unbatch()):
+            one = run_mwem(Qs_np, hs_np, cfg, NumpyDraws(seed + 300 + lane),
+                           index=index)
+            expect(r.selected == one.selected and r.n_scored == one.n_scored,
+                   f"IVF wave B={lanes}: lane {lane} differs from its "
+                   f"single-lane run")
 
 
 def main() -> int:
@@ -331,6 +833,8 @@ def main() -> int:
                                                mwem_step, mwem_step_batch,
                                                mwem_step_batch_ref,
                                                mwem_step_ref)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.mips import (FlatAbsIndex, IVFIndex, MarginalIVFIndex,
                                   augment_complement)
 
@@ -342,13 +846,16 @@ def main() -> int:
            "ivf_probe_batch": ivf_probe_stream_batch,
            "mwem_step_batch": mwem_step_batch,
            "gather_score_batch": gather_score_batch,
-           "marginal_gather_score": marginal_gather_score}
+           "marginal_gather_score": marginal_gather_score,
+           "flash_attention": flash_attention, "ssd_scan": ssd_scan}
     failures: list[str] = []
 
     def expect(cond: bool, what: str) -> None:
         if not cond:
             failures.append(what)
             log(f"FAIL: {what}")
+
+    expect.failures = failures
 
     card = card_line()
     log(f"card: {card}")
@@ -419,6 +926,8 @@ def main() -> int:
                f"gather_score u={u}: max err {err}")
     torch.cuda.synchronize()
     log(f"edge shapes: {'ok' if not failures else 'FAILED'}")
+    lm_edge_shapes(dev, g, expect)
+    log(f"LM kernel edge shapes: {'ok' if not failures else 'FAILED'}")
 
     # --------------------------------------- small release, card vs CPU
     rng = np.random.default_rng(args.seed)
@@ -565,6 +1074,8 @@ def main() -> int:
                    f"small {kind} wave: lane {lane} differs from its "
                    f"single-lane run")
     log(f"small waves: {'ok' if not failures else 'FAILED'}")
+    wide_ivf_waves(dev, args.seed, Qs_np, hs_np, expect, ops)
+    log(f"IVF waves of 17 and 24 lanes: {'ok' if not failures else 'FAILED'}")
 
     # ------------------- factored kernels at edge shapes: K6, multi-block K2
     def k6_case(card, cliques, C, signs="both", active_frac=None):
@@ -1070,6 +1581,8 @@ def main() -> int:
             rows_out.append(out)
         log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by}), max err {err:.3g}, launches {n_launch}")
+
+    rows_out += lm_phases(args, dev, expect, ops)
 
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed")

@@ -11,7 +11,11 @@ over the deduplicated union of their cells, each unique cell read once
 for all lanes. `ivf_probe_topk_batch` is the whole wave probe: the
 planning of `ref.batch_probe_slots` (one (B × d) @ (d × nlist) product
 and sorts, as the reference plans it), then K5 — again with no host
-round-trip. CPU tensors run the plain versions.
+round-trip. A wave of more than `MAX_LANES` lanes is probed in groups of
+at most `MAX_LANES`, each with its own plan and its own K5, on either
+device: slots lie in ascending cell order and ties rank by slot, so a
+lane's top-k does not depend on the other lanes of its group. CPU tensors
+run the plain versions.
 """
 
 from __future__ import annotations
@@ -138,6 +142,14 @@ def ivf_probe_topk_batch(cents: torch.Tensor, cell_rows: torch.Tensor,
                          nprobe: int):
     """Wave IVF probe of B probe vectors ``Vb`` (B, d): plan the lanes'
     top-``nprobe`` cells (signed, ties to the lower cell id), then K5 →
-    ``(ids (B, k), scores (B, k), n_valid (B,))``."""
-    slots, member, _ = batch_probe_slots(cents, Vb, nprobe)
-    return ivf_probe_stream_batch(slots, member, cell_rows, cells, Vb, k)
+    ``(ids (B, k), scores (B, k), n_valid (B,))``. Any B: groups of at
+    most `MAX_LANES` lanes are planned and probed one after another."""
+    outs = []
+    for b0 in range(0, Vb.shape[0], MAX_LANES):
+        Vg = Vb[b0:b0 + MAX_LANES]
+        slots, member, _ = batch_probe_slots(cents, Vg, nprobe)
+        outs.append(ivf_probe_stream_batch(slots, member, cell_rows, cells,
+                                           Vg, k))
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat(parts) for parts in zip(*outs))

@@ -42,6 +42,7 @@ from repro_torch.kernels.ivf_probe import (batch_probe_slots,
                                            ivf_probe_stream_batch,
                                            ivf_probe_stream_batch_ref,
                                            ivf_probe_topk_batch)
+from repro_torch.kernels.ivf_probe import ops as ivf_ops
 from repro_torch.kernels.mwem_step import (gather_score_batch,
                                            gather_score_batch_ref,
                                            gather_score_ref, mwem_step_batch,
@@ -236,6 +237,49 @@ class TestBatchProbe:
         assert ivf_probe_stream_batch.launches == before  # no kernel launched
         with pytest.raises(ValueError, match="k="):
             ivf_probe_stream_batch(slots, member, _t(cell_rows), _t(cells), Vb, 0)
+
+
+class TestLaneGroups:
+    """A wave wider than one K5 launch is probed in groups of lanes, each
+    group with its own plan; forcing groups of 4 shows that a B = 9 wave
+    equals the unsplit one lane for lane (the card's launches take 16)."""
+
+    @pytest.mark.parametrize("integer", [False, True])
+    def test_split_probe_equals_unsplit(self, monkeypatch, integer):
+        V, cents, cells, cell_rows = _ivf_structure(200, 8, 12, 24, seed=4,
+                                                    integer=integer)
+        rng = np.random.default_rng(6)
+        Vb = (rng.integers(-2, 3, size=(9, 8)) if integer
+              else rng.standard_normal((9, 8))).astype(np.float32)
+        args = (_t(cents), _t(cell_rows), _t(cells), _t(Vb), 15, 3)
+        whole = ivf_probe_topk_batch(*args)
+        monkeypatch.setattr(ivf_ops, "MAX_LANES", 4)
+        before = ivf_probe_stream_batch.launches  # CPU: counts stay put
+        split = ivf_probe_topk_batch(*args)
+        assert ivf_probe_stream_batch.launches == before
+        assert torch.equal(split[0], whole[0]) and torch.equal(split[2], whole[2])
+        if integer:  # exact sums: the scores too are equal
+            assert torch.equal(split[1], whole[1])
+        else:  # the plain product's blocking follows the group's shape
+            np.testing.assert_allclose(split[1].numpy(), whole[1].numpy(),
+                                       rtol=1e-6, atol=1e-6)
+
+    def test_split_wave_run_equals_unsplit(self, monkeypatch, data, ivf_pair):
+        Q, h, _ = data
+        _, index = ivf_pair
+        cfg = MWEMConfig(T=T, mode="fast", n_records=N)
+
+        def run():
+            return run_mwem_batch(convert.tensor(Q, CPU), convert.tensor(h, CPU),
+                                  cfg, LaneDraws.seeded(range(40, 49), CPU),
+                                  index=index, device=CPU)
+
+        whole = run()
+        monkeypatch.setattr(ivf_ops, "MAX_LANES", 4)
+        split = run()
+        np.testing.assert_array_equal(split.selected, whole.selected)
+        np.testing.assert_array_equal(split.n_scored, whole.n_scored)
+        assert torch.equal(split.p_hat, whole.p_hat)
 
 
 # ----------------------------------------------------- K2 and K3 on lanes

@@ -325,7 +325,10 @@ class TestBoundary:
                 "repro_torch.core.adaptive, repro_torch.core.workload, "
                 "repro_torch.mips.marginal, "
                 "repro_torch.kernels.mips_topk, repro_torch.kernels.ivf_probe, "
-                "repro_torch.kernels.mwem_step; "
+                "repro_torch.kernels.mwem_step, repro_torch.models, "
+                "repro_torch.serve.engine, repro_torch.launch.serve, "
+                "repro_torch.configs, repro_torch.kernels.flash_attention, "
+                "repro_torch.kernels.ssd_scan; "
                 "assert not any(m == 'repro' or m.startswith('repro.') "
                 "for m in sys.modules)")
         env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

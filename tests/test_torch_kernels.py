@@ -280,9 +280,10 @@ class TestBuild:
 
     def test_every_source_has_a_library_name(self):
         stems = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-        assert stems == ["ivf_probe", "mips_topk", "mwem_step"]
+        assert stems == ["flash_attention", "ivf_probe", "mips_topk",
+                         "mwem_step", "ssd_scan"]
         names = {_build._lib_path(p).name for p in _build.CSRC.glob("*.cu")}
-        assert len(names) == 3
+        assert len(names) == 5
 
     def test_require_rejects_cpu_tensors(self):
         with pytest.raises(ValueError, match="CUDA"):
