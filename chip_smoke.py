@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of Fast-MWEM on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0] [--T 1000] [--m-log2 16] [--n-records 100000]
-                          [--attrs 15]
+    python3 chip_smoke.py [--seed 0] [--T 500] [--m-log2 16] [--n-records 100000]
+                          [--attrs 15] [--lp-T 200]
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, in parallel) into ``build/repro_torch/``.
@@ -13,7 +13,7 @@
    CPU run of the plain versions, fed the same draws, must select the same
    queries and release the same histogram.
 4. Runs the main path through `run_mwem` at the `fastmwem-synth` domain
-   (U = 2**14) with m = 2**16 base queries, T = 1000, (ε, δ) = (1, 1e-3),
+   (U = 2**14) with m = 2**16 base queries, T = 500, (ε, δ) = (1, 1e-3),
    n = 100000 records: exhaustive MWEM, Fast-MWEM over the flat index and
    Fast-MWEM over the IVF index. Kernel launch counts are zeroed just
    before each run and read just after it. Each release must beat the
@@ -47,7 +47,7 @@
    runs the factored main path — all 4-way marginals over ``--attrs`` = 15
    binary attributes (U = 2**15, m = 21840, no dense table:
    `benchmarks/bench_marginals.py:75-79`), n = 100000 records drawn as
-   multinomial counts under ``softmax(2·N(0,1))`` logits, T = 1000 — in
+   multinomial counts under ``softmax(2·N(0,1))`` logits, T = 500 — in
    exact, fast/flat and fast/marginal-IVF mode (each below the uniform
    baseline, each ledger equal to its preview, K6 and the multi-block K2
    launched in both fast modes), the adaptive worst-marginal loop (T = 30)
@@ -80,6 +80,22 @@
    Before that, right after step 6's small waves, IVF waves of 17 and 24
    lanes (more than one K5 launch takes) must equal their lanes run one by
    one.
+10. The private LP solvers (run before step 9's serving): holds K7
+   (`mwu_update`, the fused multiplicative-weights update) to its plain
+   version at U = 1 … 2**20, one row and 8-row grids, three steps, dense
+   and row-id forms, and K1 (``plain``), K3 and K4 at the LP widths 21 and
+   300; solves small scalar and dual LPs and LP waves on the card and on
+   the CPU with the same draws (equal selections), each card lane against
+   the card's single solve; then the paper's sizes
+   (`benchmarks/bench_lp.py`): the scalar solver at m = 2**18, d = 20,
+   T = 200 in exact, fast/flat and fast/IVF mode, waves of 8 lanes
+   (fast/flat; exact with one b a lane), and the constraint-private dual
+   at (m, d) = (300, 1024), s = 12, in exact and fast/flat mode — each
+   with K7 launched once an iteration, x̄ a distribution (the dual's in
+   K_OPT), the ledger equal to its `lp_release_cost` preview; and times K7
+   at the paths' shapes ((1, 20), (8, 20), (1, 300); (1, 2**20) as a
+   `timing_only` line) beside `torch.softmax(torch.add(...))`, and K1,
+   K3, K4 at the LP shapes.
 
 It needs one CUDA device and exits non-zero, printing no result, without
 one. The last lines are the card, the per-kernel JSON line and the result.
@@ -112,10 +128,14 @@ LANES = 8  # the serving tier's wave, src/repro/serve/release_service.py:218
 KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score",
            "ivf_probe_batch", "mwem_step_batch", "gather_score_batch",
            "marginal_gather_score", "mwem_step:multiblock",
-           "flash_attention", "flash_attention:decode", "ssd_scan")
-# Timed and checked like a kernel of the list, but no main path runs it yet
-# (a factored wave is not ported): its line is logged, not in the result.
-TIMING_ONLY = ("mwem_step_batch:multiblock",)
+           "flash_attention", "flash_attention:decode", "ssd_scan",
+           "mwu_update", "mwu_update:wave", "mwu_update:dual", "mips_topk:lp",
+           "ivf_probe:lp", "gather_score_batch:lp", "mips_topk:dual",
+           "gather_score:dual")
+# Timed and checked like a kernel of the list, but no main path runs them
+# (a factored wave is not ported; no path updates a row of 2**20 weights
+# with K7): their lines are logged, not in the result.
+TIMING_ONLY = ("mwem_step_batch:multiblock", "mwu_update:2^20")
 REPLACES = {
     "mips_topk": "src/repro/kernels/mips_topk/mips_topk.py:97",
     "ivf_probe": "src/repro/kernels/ivf_probe/ivf_probe.py:120",
@@ -131,6 +151,7 @@ REPLACES = {
     "flash_attention:decode":
         "src/repro/kernels/flash_attention/flash_attention.py:112",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:65",
+    "mwu_update": "src/repro/kernels/mwu_update/mwu_update.py:61",
 }
 SOURCES = {
     "mips_topk": "src/repro_torch/csrc/mips_topk.cu",
@@ -146,6 +167,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention:decode": "src/repro_torch/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "mwu_update": "src/repro_torch/csrc/mwu_update.cu",
 }
 
 
@@ -206,6 +228,33 @@ def time_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def replayed_ms(fn, n: int = 200) -> float:
+    """Mean device time of one call of ``fn`` over ``n`` back-to-back
+    replays of a CUDA graph between one pair of CUDA events: for a kernel
+    of a few microseconds, `time_ms`'s one event pair a replay measures
+    mostly the replay's own overhead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -770,6 +819,503 @@ def lm_phases(args, dev, expect, ops) -> list:
     return rows
 
 
+# ------------------------------------------------- the private LP solvers
+
+LP_M_LOG2, LP_D = 18, 20     # scalar LP: benchmarks/bench_lp.py:9, 38
+DUAL_M, DUAL_D, DUAL_S = 300, 1024, 12   # dual LP: benchmarks/bench_lp.py:79
+
+
+def dual_opt(b, c) -> float:
+    """The dual's OPT level: twice c_min·b_max, so its width
+    ρ = OPT/c_min − b_max is b_max. (The reference's benchmark takes
+    OPT = ½·mean(c), which floors ρ at 1e-6; the reference then turns its
+    y to NaN on the CPU and picks vertex 0 from the second step on.)"""
+    return 2.0 * float(np.min(c)) * float(np.max(b))
+
+
+def k7_edge_shapes(dev, g, expect) -> None:
+    """K7 against its plain version: one row and 8-row grids, U from 1 to
+    2**20 (no multiple of the block, an unaligned tail), three steps, a
+    dense update and one picked by row id. lw' to rtol 1e-6 (the kernel
+    rounds the product and the sum as the plain version does), m exactly,
+    s and p to rtol 1e-5 (an online sum in another order); a single-row
+    call equals its row of the grid."""
+    import torch
+    from repro_torch.kernels.mwu_update import mwu_update, mwu_update_ref
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    for U in (1, 20, 21, 300, 1023, 1024, 1025, 2 ** 20):
+        for B in (1, 8):
+            lw, c, table = 3.0 * randn(B, U), randn(B, U), randn(13, U)
+            rows = torch.randint(0, 13, (B,), generator=g, device=dev)
+            for coef in (-0.37, 0.0, 1.5):
+                for form, args in (("dense", (lw, c, coef)),
+                                   ("rows", (lw, table, coef, rows))):
+                    got, want = mwu_update(*args), mwu_update_ref(*args)
+                    ok = (torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
+                          and torch.equal(got[2], want[2])
+                          and torch.allclose(got[3], want[3], rtol=1e-5, atol=0)
+                          and torch.allclose(got[1], want[1], rtol=1e-5,
+                                             atol=1e-30))
+                    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                    expect(ok, f"mwu_update U={U} B={B} coef={coef} {form}: "
+                           f"max err {err}")
+            one = mwu_update(lw[B - 1], table, -0.37, rows=rows[B - 1])
+            grid = mwu_update(lw, table, -0.37, rows=rows)
+            expect(all(torch.equal(a, b[B - 1]) for a, b in zip(one, grid)),
+                   f"mwu_update U={U}: a single row differs from its grid row")
+    torch.cuda.synchronize()
+
+
+def lp_width_shapes(dev, g, expect) -> None:
+    """K1 (``plain``), K3 and K4 at the LP paths' widths — 21 (the rows
+    ``[A_i, b_i]``) and 300 (the dual's N rows) — against their plain
+    versions: both widths take the kernels' scalar load path (d % 4 ≠ 0,
+    or a probe that is a row of a (B, d + 1) block at an unaligned
+    offset)."""
+    import torch
+    from repro_torch.kernels.ivf_probe import ivf_probe_stream, ivf_probe_stream_ref
+    from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
+    from repro_torch.kernels.mwem_step import (gather_score, gather_score_batch,
+                                               gather_score_batch_ref,
+                                               gather_score_ref)
+    from repro_torch.mips import IVFIndex
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    for n, d, k in ((2 ** LP_M_LOG2, LP_D + 1, 512), (DUAL_D, DUAL_M, 32),
+                    (1000, LP_D + 1, 37)):
+        V, Qb = randn(n, d), randn(3, d)
+        for q in (Qb[1], randn(d)):
+            tol = f32_tol(d, float((V.abs() @ q.abs()).max()))
+            got, want = mips_topk(V, q, k, "plain"), mips_topk_ref(V, q, k, "plain")
+            ok, err = same_topk(*got, *want, tol)
+            expect(ok, f"mips_topk plain n={n} d={d} k={k}: max err {err}")
+            aug = torch.randint(0, n, (300,), generator=g, device=dev)
+            act = torch.rand(300, generator=g, device=dev) < 0.5
+            err = float((gather_score(V, q, aug, act)
+                         - gather_score_ref(V, q, aug, act)).abs().max())
+            expect(err <= tol, f"gather_score n={n} d={d}: max err {err}")
+        aug_b = torch.randint(0, n, (3, 300), generator=g, device=dev)
+        act_b = torch.rand(3, 300, generator=g, device=dev) < 0.5
+        err = float((gather_score_batch(V, Qb, aug_b, act_b)
+                     - gather_score_batch_ref(V, Qb, aug_b, act_b)).abs().max())
+        expect(err <= f32_tol(d, float((V.abs() @ Qb.abs().T).max())),
+               f"gather_score_batch n={n} d={d}: max err {err}")
+    for n, d in ((4096, LP_D + 1), (DUAL_D, DUAL_M)):
+        index = IVFIndex(randn(n, d).cpu().numpy(), seed=0, device=dev)
+        Qb = randn(3, d)
+        probe = mips_topk(index._cents, Qb[1], index.nprobe, "plain")[0]
+        tol = f32_tol(d, float((index._cell_rows[probe.long()].abs()
+                                @ Qb[1].abs()).max()))
+        for k in (1, 16, 64):
+            got = ivf_probe_stream(probe, index._cell_rows, index._cells8, Qb[1], k)
+            want = ivf_probe_stream_ref(probe, index._cell_rows, index._cells8,
+                                        Qb[1], k)
+            ok, err = same_topk(got[0], got[1], want[0], want[1], tol)
+            expect(ok and int(got[2]) == int(want[2]),
+                   f"ivf_probe n={n} d={d} k={k}: max err {err}")
+    torch.cuda.synchronize()
+
+
+def small_lp_card_vs_cpu(dev, seed, expect) -> None:
+    """Both LP solvers and the LP wave on a small instance, card against
+    CPU with the same numpy draws: the same selections and n_scored, x̄
+    within 1e-6 (a distribution over 20 or 256 entries); each card lane of
+    a wave equals the card's single-lane solve."""
+    import torch
+    from repro_torch.core import (DualLPConfig, ScalarLPConfig,
+                                  solve_constraint_private_lp, solve_lp_batch,
+                                  solve_scalar_lp)
+    from repro_torch.core.queries import random_feasible_lp, random_packing_lp
+    from repro_torch.mips import FlatIndex, IVFIndex, lp_dual_rows, lp_scalar_rows
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng([seed, 30])
+    A, b, _ = random_feasible_lp(rng, 2048, LP_D)
+    rows = lp_scalar_rows(A, b)
+
+    def index_on(kind, where, V):
+        if kind == "flat":
+            return FlatIndex(V, device=where)
+        return IVFIndex(V, seed=0, device=where) if kind == "ivf" else None
+
+    def same(a, b_):
+        return (list(a.selected) == list(b_.selected)
+                and list(a.n_scored) == list(b_.n_scored)
+                and torch.allclose(a.x_bar.cpu(), b_.x_bar.cpu(), rtol=0,
+                                   atol=1e-6))
+
+    for kind in ("exact", "flat", "ivf"):
+        cfg = ScalarLPConfig(T=40, mode="exact" if kind == "exact" else "fast")
+        card, host = (solve_scalar_lp(A, b, cfg, NumpyDraws(seed + 31),
+                                      index=index_on(kind, where, rows),
+                                      device=where) for where in (dev, cpu))
+        expect(same(card, host), f"small scalar LP {kind}: card and CPU differ")
+    bb = np.stack([b + 0.05 * rng.standard_normal(b.shape[0]).astype(np.float32)
+                   for _ in range(3)])
+    for kind, bw in (("flat", b), ("exact", bb)):
+        cfg = ScalarLPConfig(T=40, mode="exact" if kind == "exact" else "fast")
+        waves = [solve_lp_batch(A, bw, cfg,
+                                [NumpyDraws(seed + 32 + lane) for lane in range(3)],
+                                index=index_on(kind, where, rows), device=where)
+                 for where in (dev, cpu)]
+        ok = (np.array_equal(waves[0].selected, waves[1].selected)
+              and np.array_equal(waves[0].n_scored, waves[1].n_scored)
+              and torch.allclose(waves[0].x_bar.cpu(), waves[1].x_bar, atol=1e-6))
+        expect(ok, f"small LP wave {kind}: card and CPU differ")
+        for lane in range(3):
+            one = solve_scalar_lp(A, bw if bw.ndim == 1 else bw[lane], cfg,
+                                  NumpyDraws(seed + 32 + lane),
+                                  index=index_on(kind, dev, rows), device=dev)
+            expect(one.selected == waves[0].selected[lane].tolist(),
+                   f"small LP wave {kind}: card lane {lane} differs from "
+                   f"its single-lane solve")
+    A2, b2, c2 = random_packing_lp(rng, 120, 256)
+    opt = dual_opt(b2, c2)
+    N = lp_dual_rows(A2, c2, opt)
+    for kind in ("exact", "flat", "ivf"):
+        cfg = DualLPConfig(T=40, s=DUAL_S,
+                           mode="exact" if kind == "exact" else "fast")
+        card, host = (solve_constraint_private_lp(
+            A2, b2, c2, opt, cfg, NumpyDraws(seed + 36),
+            index=index_on(kind, where, N), device=where)
+            for where in (dev, cpu))
+        expect(same(card, host) and card.n_violated == host.n_violated,
+               f"small dual LP {kind}: card and CPU differ")
+
+
+def lp_main_path(args, dev, expect, ops) -> dict:
+    """The LP paths at the paper's sizes: the scalar solver at m = 2**18,
+    d = 20, T = ``--lp-T`` in exact, fast/flat and fast/IVF mode; waves of
+    8 lanes (fast/flat, and exact with one b a lane); the dual at
+    (m, d) = (300, 1024), s = 12, in exact and fast/flat mode. Counts are
+    zeroed before each run and read after it; K7 must launch once an
+    iteration of each solve or wave. Returns what the timing rows need."""
+    import torch
+    from repro_torch.core import (DualLPConfig, LaneDraws, PrivacyLedger,
+                                  ScalarLPConfig, TorchDraws, lp_release_cost,
+                                  solve_constraint_private_lp, solve_lp_batch,
+                                  solve_scalar_lp)
+    from repro_torch.core.queries import random_feasible_lp, random_packing_lp
+    from repro_torch.mips import FlatIndex, IVFIndex, lp_dual_rows, lp_scalar_rows
+
+    T, m, d = args.lp_T, 2 ** LP_M_LOG2, LP_D
+    rng = np.random.default_rng([args.seed, 31])
+    t0 = time.perf_counter()
+    A_np, b_np, _ = random_feasible_lp(rng, m, d)
+    rows_np = lp_scalar_rows(A_np, b_np)
+    A, b = torch.as_tensor(A_np).to(dev), torch.as_tensor(b_np).to(dev)
+    flat = FlatIndex(rows_np, device=dev)
+    t1 = time.perf_counter()
+    ivf = IVFIndex(rows_np, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    alpha = ScalarLPConfig().alpha
+    uniform_vf = float(((A @ torch.full((d,), 1.0 / d, device=dev) - b)
+                        > alpha).float().mean())
+    log(json.dumps({"lp_data": {"m": m, "d": d, "T": T,
+                                "data_s": t1 - t0,
+                                "ivf_build_s": time.perf_counter() - t1,
+                                "nlist": ivf.nlist, "cap": ivf.cap,
+                                "nprobe": ivf.nprobe,
+                                "uniform_violated_frac": uniform_vf}}))
+    out = {"A": A, "b": b, "flat": flat, "ivf": ivf, "counts": {}, "runs": {}}
+
+    def check_counts(tag, counts, want):
+        expect(counts["mwu_update"] == T,
+               f"{tag}: mwu_update launched {counts['mwu_update']} times, not {T}")
+        for name in want:
+            expect(counts[name] > 0, f"{tag}: kernel {name} never launched")
+
+    expected = {"exact": (), "flat": ("mips_topk", "gather_score_batch"),
+                "ivf": ("mips_topk", "ivf_probe", "gather_score_batch")}
+    for kind, index in (("exact", None), ("flat", flat), ("ivf", ivf)):
+        cfg = ScalarLPConfig(eps=1.0, delta=1e-3, T=T,
+                             mode="exact" if kind == "exact" else "fast")
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = solve_scalar_lp(A, b, cfg, TorchDraws.seeded(args.seed + 40, dev),
+                              index=index)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        preview = PrivacyLedger().preview(*lp_release_cost(cfg, A, index))
+        composed = res.ledger.composed()
+        log(json.dumps({"lp_run": kind, "violated_frac": res.violated_frac,
+                        "uniform_violated_frac": uniform_vf,
+                        "mean_n_scored": float(np.mean(res.n_scored)),
+                        "overflow_count": res.overflow_count,
+                        "device_ms_per_iter": 1e3 * float(np.mean(res.iter_seconds)),
+                        "wall_ms_per_iter": 1e3 * wall / T,
+                        "eps_delta": composed, "preview": preview,
+                        "launches": counts}))
+        x = res.x_bar
+        expect(tuple(x.shape) == (d,) and bool(torch.isfinite(x).all())
+               and bool((x >= 0).all()) and abs(float(x.sum()) - 1.0) < 1e-4,
+               f"lp {kind}: x_bar is not a distribution over {d}")
+        expect(0.0 <= res.violated_frac <= 1.0, f"lp {kind}: violated_frac "
+               f"{res.violated_frac}")
+        expect(composed == preview, f"lp {kind}: ledger {composed} != {preview}")
+        check_counts(f"lp {kind}", counts, expected[kind])
+        out["counts"][kind], out["runs"][kind] = counts, res
+
+    bb = b[None, :] + 0.05 * torch.randn(LANES, m, device=dev,
+                                         generator=torch.Generator(device=dev)
+                                         .manual_seed(args.seed + 41))
+    for kind, index, bw in (("flat", flat, b), ("exact", None, bb)):
+        cfg = ScalarLPConfig(eps=1.0, delta=1e-3, T=T,
+                             mode="exact" if kind == "exact" else "fast")
+        ledgers = [PrivacyLedger() for _ in range(LANES)]
+        draws = LaneDraws.seeded([args.seed + 50 + i for i in range(LANES)], dev)
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = solve_lp_batch(A, bw, cfg, draws, index=index, ledgers=ledgers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        preview = PrivacyLedger().preview(*lp_release_cost(cfg, A, index))
+        log(json.dumps({"lp_wave": kind, "lanes": LANES,
+                        "per_lane_b": bw.dim() == 2,
+                        "violated_fracs": res.violated_fracs.tolist(),
+                        "mean_n_scored": float(res.n_scored.mean()),
+                        "overflow_counts": res.overflow_counts.tolist(),
+                        "device_ms_per_iter": 1e3 * res.total_seconds / T,
+                        "wall_ms_per_iter": 1e3 * wall / T,
+                        "preview": preview, "launches": counts}))
+        xs = res.x_bar
+        expect(tuple(xs.shape) == (LANES, d) and bool(torch.isfinite(xs).all())
+               and bool(((xs.sum(1) - 1.0).abs() < 1e-4).all()),
+               f"lp wave {kind}: x_bar malformed")
+        expect(all(led.composed() == preview for led in ledgers),
+               f"lp wave {kind}: a lane's ledger differs from {preview}")
+        expect(len({tuple(r) for r in res.selected}) > 1,
+               f"lp wave {kind}: every lane selected the same constraints")
+        check_counts(f"lp wave {kind}", counts, expected[kind])
+        out["counts"][f"wave {kind}"], out["runs"][f"wave {kind}"] = counts, res
+
+    A2, b2, c2 = random_packing_lp(rng, DUAL_M, DUAL_D)
+    opt = dual_opt(b2, c2)
+    N_np = lp_dual_rows(A2, c2, opt)
+    flat_n = FlatIndex(N_np, device=dev)
+    out.update(N=flat_n._v, flat_n=flat_n)
+    for kind, index in (("exact", None), ("flat", flat_n)):
+        cfg = DualLPConfig(eps=1.0, delta=1e-3, T=T, s=DUAL_S,
+                           mode="exact" if kind == "exact" else "fast")
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = solve_constraint_private_lp(A2, b2, c2, opt, cfg,
+                                          TorchDraws.seeded(args.seed + 60, dev),
+                                          index=index)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        preview = PrivacyLedger().preview(*lp_release_cost(cfg, A2, index))
+        composed = res.ledger.composed()
+        objective = float(res.x_bar.cpu() @ torch.as_tensor(c2))
+        log(json.dumps({"dual_run": kind, "m": DUAL_M, "d": DUAL_D, "s": DUAL_S,
+                        "opt": opt, "objective": objective,
+                        "n_violated": res.n_violated,
+                        "mean_n_scored": float(np.mean(res.n_scored)),
+                        "overflow_count": res.overflow_count,
+                        "device_ms_per_iter": 1e3 * float(np.mean(res.iter_seconds)),
+                        "wall_ms_per_iter": 1e3 * wall / T,
+                        "eps_delta": composed, "preview": preview,
+                        "launches": counts}))
+        expect(bool(torch.isfinite(res.x_bar).all())
+               and abs(objective - opt) <= 1e-3 * opt,
+               f"dual {kind}: x_bar is not in K_OPT (c·x̄ = {objective}, OPT {opt})")
+        expect(composed == preview, f"dual {kind}: ledger {composed} != {preview}")
+        check_counts(f"dual {kind}", counts,
+                     () if kind == "exact" else ("mips_topk", "gather_score"))
+        out["counts"][f"dual {kind}"], out["runs"][f"dual {kind}"] = counts, res
+
+    # device busy share of 50 iterations of each fast LP path, by profiler
+    # (the window runs between the ends of the first and last K7 launch)
+    profiled = (
+        ("lp flat", lambda: solve_scalar_lp(
+            A, b, ScalarLPConfig(T=51), TorchDraws.seeded(args.seed + 80, dev),
+            index=flat)),
+        ("lp ivf", lambda: solve_scalar_lp(
+            A, b, ScalarLPConfig(T=51), TorchDraws.seeded(args.seed + 80, dev),
+            index=ivf)),
+        ("lp wave flat", lambda: solve_lp_batch(
+            A, b, ScalarLPConfig(T=51),
+            LaneDraws.seeded([args.seed + 90 + i for i in range(LANES)], dev),
+            index=flat)),
+        ("dual flat", lambda: solve_constraint_private_lp(
+            A2, b2, c2, opt, DualLPConfig(T=51, s=DUAL_S),
+            TorchDraws.seeded(args.seed + 80, dev), index=flat_n)),
+    )
+    for name, run in profiled:
+        res, prof = profile_window(run, step_kernel="mwu_update_kernel")
+        event_ms = (1e3 * res.total_seconds / 51 if hasattr(res, "total_seconds")
+                    else 1e3 * float(np.mean(res.iter_seconds[1:])))
+        log(json.dumps({"profile": name, **prof, "event_iter_ms": event_ms}))
+    return out
+
+
+def lp_timing_rows(lp, dev, seed, expect) -> list:
+    """K7 at the LP paths' shapes — the primal's one lane and 8 lanes at
+    U = 20 (rows picked by id from A), the dual's one row at U = 300 —
+    and at one row of 2**20 (``timing_only``: no path runs it), plus K1,
+    K3 and K4 at the LP paths' shapes, each against its plain version
+    and timed; K7's yardstick is `torch.softmax` of `torch.add` (two
+    calls)."""
+    import torch
+    from repro_torch.core.lazy_em import default_tail_cap
+    from repro_torch.kernels.ivf_probe import ivf_probe_stream, ivf_probe_stream_ref
+    from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
+    from repro_torch.kernels.mwem_step import (gather_score, gather_score_batch,
+                                               gather_score_batch_ref,
+                                               gather_score_ref)
+    from repro_torch.kernels.mwu_update import mwu_update, mwu_update_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed + 70)
+    A, b, ivf, N = lp["A"], lp["b"], lp["ivf"], lp["N"]
+    cnt, runs = lp["counts"], lp["runs"]
+    m, d = A.shape
+    T = len(runs["exact"].selected)
+    coef = -math.sqrt(math.log(d) / T) / float(A.abs().max())
+    sel1 = torch.tensor(runs["flat"].selected[-1:], device=dev)
+    sel8 = torch.as_tensor(runs["wave flat"].selected[:, -1], device=dev)
+    rows = []
+    k7 = [  # (row, launches, lw, c, rows)
+        ("mwu_update", sum(cnt[k]["mwu_update"] for k in ("exact", "flat", "ivf")),
+         torch.randn(1, d, generator=g, device=dev), A, sel1),
+        ("mwu_update:wave",
+         sum(cnt[k]["mwu_update"] for k in ("wave flat", "wave exact")),
+         torch.randn(LANES, d, generator=g, device=dev), A, sel8),
+        ("mwu_update:dual",
+         sum(cnt[k]["mwu_update"] for k in ("dual exact", "dual flat")),
+         torch.randn(DUAL_M, generator=g, device=dev),
+         torch.randn(DUAL_M, generator=g, device=dev), None),
+        ("mwu_update:2^20", 0, torch.randn(2 ** 20, generator=g, device=dev),
+         torch.randn(2 ** 20, generator=g, device=dev), None),
+    ]
+    for row, n_launch, lw, c, sel in k7:
+        B, U = (1, lw.shape[0]) if lw.dim() == 1 else tuple(lw.shape)
+        dense = c if sel is None else c.index_select(0, sel)
+        got, want = mwu_update(lw, c, coef, sel), mwu_update_ref(lw, c, coef, sel)
+        err = max(float((a - e).abs().max()) for a, e in zip(got, want))
+        ok = (torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
+              and torch.equal(got[2], want[2])
+              and torch.allclose(got[1], want[1], rtol=1e-5, atol=1e-30)
+              and torch.allclose(got[3], want[3], rtol=1e-5, atol=0))
+        expect(ok, f"{row} at its path's shape: max err {err}")
+        calls = (lambda: mwu_update(lw, c, coef, sel),
+                 lambda: mwu_update_ref(lw, c, coef, sel),
+                 lambda: torch.softmax(torch.add(lw, dense, alpha=coef), -1))
+        ms, plain_ms, lib_ms = (time_ms(f) for f in calls)
+        back = [replayed_ms(f) for f in calls]
+        nbytes = 4.0 * 4 * B * U + 8.0 * B + (8.0 * B if sel is not None else 0.0)
+        b_ms, b_by = bound_ms(nbytes, 8.0 * B * U)
+        out = {"name": row, "route": "cuda", "source": SOURCES["mwu_update"],
+               "replaces": REPLACES["mwu_update"], "launches": n_launch,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "library": "torch.softmax(torch.add(lw, c, alpha=coef), -1): "
+                          "two calls", "shape": [B, U],
+               "replayed_ms": dict(zip(("kernel", "plain", "library"), back))}
+        if row in TIMING_ONLY:
+            log(json.dumps({"timing_only": out}))
+        else:
+            rows.append(out)
+        log(f"{row} ({B}, {U}): {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms in two calls, bound {b_ms:.6f} ms by {b_by}; "
+            f"back-to-back {back[0]:.4f} / {back[1]:.4f} / {back[2]:.4f} ms), "
+            f"max err {err:.3g}, launches {n_launch}")
+
+    # K1, K3 and K4 where the LP paths run them: a probe [x, -1] from the
+    # flat run, a tail with as many active slots as that run's mean tail
+    Ab = torch.cat([A, b[:, None]], dim=1)
+    xq = torch.cat([runs["flat"].x_bar, torch.full((1,), -1.0, device=dev)])
+    k = math.ceil(math.sqrt(m))
+    cap = default_tail_cap(m)
+    n_act = max(1, round(float(np.mean(runs["flat"].n_scored)) - k))
+    aug = torch.randint(0, m, (LANES, cap), generator=g, device=dev)
+    act = torch.zeros(LANES, cap, dtype=torch.bool, device=dev)
+    act[:, :n_act] = True
+    Xq = torch.cat([runs["wave flat"].x_bar,
+                    torch.full((LANES, 1), -1.0, device=dev)], dim=1)
+    probe = mips_topk(ivf._cents, xq, ivf.nprobe, "plain")[0]
+    n_valid = int(ivf_probe_stream(probe, ivf._cell_rows, ivf._cells8, xq, k)[2])
+    y = runs["dual flat"].x_bar.new_full((DUAL_M,), 1.0 / DUAL_M)
+    kd, capd = math.ceil(math.sqrt(DUAL_D)), default_tail_cap(DUAL_D)
+    n_act_d = max(1, round(float(np.mean(runs["dual flat"].n_scored)) - kd))
+    aug_d = torch.randint(0, DUAL_D, (capd,), generator=g, device=dev)
+    act_d = torch.arange(capd, device=dev) < n_act_d
+    dp = d + 1
+    cases = [  # (row, wrapper, launches, kernel, plain, tol, bytes, flops)
+        ("mips_topk:lp", "mips_topk",
+         cnt["flat"]["mips_topk"] + cnt["wave flat"]["mips_topk"],
+         lambda: mips_topk(Ab, xq, k, "plain"),
+         lambda: mips_topk_ref(Ab, xq, k, "plain"),
+         f32_tol(dp, float((Ab.abs() @ xq.abs()).max())),
+         4.0 * m * dp + 4 * dp + 8 * k, 2.0 * m * dp),
+        ("ivf_probe:lp", "ivf_probe", cnt["ivf"]["ivf_probe"],
+         lambda: ivf_probe_stream(probe, ivf._cell_rows, ivf._cells8, xq, k),
+         lambda: ivf_probe_stream_ref(probe, ivf._cell_rows, ivf._cells8, xq, k),
+         f32_tol(dp, float((ivf._cell_rows[probe.long()].abs() @ xq.abs()).max())),
+         4.0 * n_valid * dp + 4 * ivf.nprobe * (ivf._cells8.shape[1] + 1)
+         + 4 * dp + 8 * k, 2.0 * n_valid * dp),
+        ("gather_score_batch:lp", "gather_score_batch",
+         sum(cnt[kk]["gather_score_batch"] for kk in ("flat", "ivf", "wave flat")),
+         lambda: gather_score_batch(Ab, Xq, aug, act),
+         lambda: gather_score_batch_ref(Ab, Xq, aug, act),
+         f32_tol(dp, float((Ab.abs() @ Xq.abs().T).max())),
+         4.0 * LANES * n_act * dp + 4 * LANES * dp + 9 * LANES * cap
+         + 4 * LANES * cap, 2.0 * LANES * n_act * dp),
+        ("mips_topk:dual", "mips_topk", cnt["dual flat"]["mips_topk"],
+         lambda: mips_topk(N, y, kd, "plain"),
+         lambda: mips_topk_ref(N, y, kd, "plain"),
+         f32_tol(DUAL_M, float((N.abs() @ y.abs()).max())),
+         4.0 * DUAL_D * DUAL_M + 4 * DUAL_M + 8 * kd, 2.0 * DUAL_D * DUAL_M),
+        ("gather_score:dual", "gather_score", cnt["dual flat"]["gather_score"],
+         lambda: gather_score(N, y, aug_d, act_d),
+         lambda: gather_score_ref(N, y, aug_d, act_d),
+         f32_tol(DUAL_M, float((N.abs() @ y.abs()).max())),
+         4.0 * n_act_d * DUAL_M + 4 * DUAL_M + 13 * capd,
+         2.0 * n_act_d * DUAL_M),
+    ]
+    for row, name, n_launch, kern, plain, tol, nbytes, flops in cases:
+        got, want = kern(), plain()
+        if "gather_score" in name:
+            err = float((got - want).abs().max())
+            ok = err <= tol
+        else:
+            ok, err = same_topk(got[0], got[1], want[0], want[1], tol)
+            if name == "ivf_probe":
+                ok = ok and int(got[2]) == int(want[2])
+        expect(ok, f"{row} at its path's shape: max err {err} (tol {tol})")
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        rows.append({"name": row, "route": "cuda", "source": SOURCES[name],
+                     "replaces": REPLACES[name], "launches": n_launch,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by}), max err {err:.3g}, launches {n_launch}")
+    return rows
+
+
+def lp_phases(args, dev, g, expect, ops) -> list:
+    """Step 10: the private LP solvers. Returns their kernel rows."""
+    k7_edge_shapes(dev, g, expect)
+    lp_width_shapes(dev, g, expect)
+    log(f"LP kernel edge shapes: {'ok' if not expect.failures else 'FAILED'}")
+    small_lp_card_vs_cpu(dev, args.seed, expect)
+    log(f"small LPs, card vs CPU: {'ok' if not expect.failures else 'FAILED'}")
+    lp = lp_main_path(args, dev, expect, ops)
+    log(f"LP main path: {'ok' if not expect.failures else 'FAILED'}")
+    return lp_timing_rows(lp, dev, args.seed, expect)
+
+
 def wide_ivf_waves(dev, seed, Qs_np, hs_np, expect, ops) -> None:
     """IVF waves of 17 and 24 lanes — more than one K5 launch scores — on
     the small input: every lane equals the card's single-lane `run_mwem`
@@ -799,11 +1345,14 @@ def wide_ivf_waves(dev, seed, Qs_np, hs_np, expect, ops) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--T", type=int, default=1000)
+    ap.add_argument("--T", type=int, default=500,
+                    help="iterations of the MWEM main paths, dense and factored")
     ap.add_argument("--m-log2", type=int, default=16)
     ap.add_argument("--n-records", type=int, default=100_000)
     ap.add_argument("--attrs", type=int, default=15,
                     help="binary attributes of the factored main path")
+    ap.add_argument("--lp-T", type=int, default=200,
+                    help="iterations of each LP solve (benchmarks/bench_lp.py:39)")
     args = ap.parse_args()
 
     import torch
@@ -834,6 +1383,7 @@ def main() -> int:
                                                mwem_step_batch_ref,
                                                mwem_step_ref)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mwu_update import mwu_update
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.mips import (FlatAbsIndex, IVFIndex, MarginalIVFIndex,
                                   augment_complement)
@@ -847,7 +1397,8 @@ def main() -> int:
            "mwem_step_batch": mwem_step_batch,
            "gather_score_batch": gather_score_batch,
            "marginal_gather_score": marginal_gather_score,
-           "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+           "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+           "mwu_update": mwu_update}
     failures: list[str] = []
 
     def expect(cond: bool, what: str) -> None:
@@ -857,6 +1408,7 @@ def main() -> int:
 
     expect.failures = failures
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
@@ -1582,8 +2134,10 @@ def main() -> int:
         log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by}), max err {err:.3g}, launches {n_launch}")
 
+    rows_out += lp_phases(args, dev, g, expect, ops)
     rows_out += lm_phases(args, dev, expect, ops)
 
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed")
         return 1

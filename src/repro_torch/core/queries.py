@@ -1,5 +1,5 @@
-"""Linear-query workloads of the paper's §5.1 and the utility objective,
-counterpart of `repro.core.queries`.
+"""Linear-query workloads of the paper's §5.1, the utility objective and
+the LP instances of §5.2, counterpart of `repro.core.queries`.
 
 The generators draw from a `numpy.random.Generator`: data is made on the
 host from a seed, in bulk, and handed to the device as one tensor.
@@ -48,3 +48,28 @@ def max_error(Q, h: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     if not hasattr(Q, "max_err"):
         Q = DenseWorkload(Q)
     return Q.max_err(h, p)
+
+
+def random_feasible_lp(rng: np.random.Generator, m: int, d: int,
+                       slack: float = 0.1):
+    """§5.2 LP instance: A ~ N(0, I), x* ∈ Δ([d]), b = A x* + |δ| (feasible).
+
+    Returns (A (m, d), b (m,), x_star (d,)) as float32 arrays.
+    """
+    A = rng.standard_normal((m, d), dtype=np.float32)
+    x_star = rng.dirichlet(np.ones(d)).astype(np.float32)
+    delta = np.float32(slack) * np.abs(rng.standard_normal(m, dtype=np.float32))
+    b = A @ x_star + delta
+    return A, b, x_star
+
+
+def random_packing_lp(rng: np.random.Generator, m: int, d: int):
+    """Positive (packing) LP for the constraint-private dual solver (§4.2):
+    max c^T x  s.t.  A x ≤ b,  x ≥ 0  with A, b, c > 0.
+
+    Returns (A (m, d), b (m,), c (d,)) as float32 arrays.
+    """
+    A = rng.uniform(0.1, 1.0, (m, d)).astype(np.float32)
+    c = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    b = rng.uniform(0.5, 1.5, m).astype(np.float32)
+    return A, b, c

@@ -1,10 +1,14 @@
-"""Flat (exact, linear-scan) |·| MIPS index — the Θ(m) baseline,
-counterpart of `repro.mips.flat.FlatAbsIndex`.
+"""Flat (exact, linear-scan) MIPS indices — the Θ(m) baseline,
+counterparts of `repro.mips.flat.FlatIndex` and `FlatAbsIndex`.
 
-The probe is one streaming pass of the `mips_topk` kernel (K1) in ``aug``
-mode: each row gives +⟨q_j, v⟩ as id j and −⟨q_j, v⟩ as id j+m, so the
-top-k over the complement-augmented set comes out without materializing
-``[Q; 1 − Q]`` or the (m,) score vector. For k ≤ m each row contributes at
+`FlatIndex` is the signed top-k over arbitrary rows that the LP solvers
+probe (rows ``[A_i, b_i]`` for the scalar solver, ``N_j`` for the dual):
+one streaming pass of the `mips_topk` kernel (K1) in ``plain`` mode.
+
+`FlatAbsIndex`'s probe is one streaming pass of the `mips_topk` kernel
+(K1) in ``aug`` mode: each row gives +⟨q_j, v⟩ as id j and −⟨q_j, v⟩ as
+id j+m, so the top-k over the complement-augmented set comes out without
+materializing ``[Q; 1 − Q]`` or the (m,) score vector. For k ≤ m each row contributes at
 most its non-negative sign to the top, so this equals the reference's
 top-k of |Q v| (up to the order of exact ties, which K1 documents).
 
@@ -28,6 +32,27 @@ import torch
 from repro_torch.core.workload import as_workload
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mips_topk import mips_topk
+
+
+class FlatIndex:
+    """Exact signed top-k of ⟨V_j, v⟩ over the rows of ``vectors`` (n, dim):
+    ``query`` returns row ids in [0, n) (int32) and their scores, ties to
+    the lower id as `jax.lax.top_k`."""
+
+    approx_margin = 0.0
+    failure_mass = 0.0
+
+    def __init__(self, vectors, device=None):
+        self.device = resolve_device(device)
+        self._v = torch.as_tensor(vectors, dtype=torch.float32).to(
+            self.device).contiguous()
+        self.n, self.dim = self._v.shape
+
+    def query(self, v: torch.Tensor, k: int):
+        return mips_topk(self._v, v, k, mode="plain")
+
+    def query_cost(self, k: int) -> int:
+        return self.n
 
 
 class FlatAbsIndex:

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.lp_scalar import lp_split_chain
 from repro.core.mwem import split_chain
 from repro.core.queries import max_error as ref_max_error
 
@@ -53,8 +54,9 @@ class JaxDraws:
     ``meas_keys[t]`` for the Laplace draw — a scalar for `run_mwem`, a
     ``(size,)`` vector for the table measurement of
     `run_adaptive_marginals`, whose rounds walk the same
-    ``key → (key, k_sel, k_meas)`` chain. The binomial is drawn from the
-    port's own ``p``.
+    ``key → (key, k_sel, k_meas)`` chain. The LP solvers walk
+    ``key → (key, k_sel)`` (`lp_chain`) and measure nothing. The binomial
+    is drawn from the port's own ``p``.
     """
 
     def __init__(self, sel_keys, meas_keys=None):
@@ -65,6 +67,11 @@ class JaxDraws:
     def chain(cls, key, T: int) -> "JaxDraws":
         sel, meas = split_chain(key, T)
         return cls(sel, meas)
+
+    @classmethod
+    def lp_chain(cls, key, T: int) -> "JaxDraws":
+        """The LP solvers' selection keys, `lp_split_chain(key, T)`."""
+        return cls(lp_split_chain(key, T))
 
     def _split(self, t):
         return jax.random.split(self.sel_keys[t], 4)
@@ -328,7 +335,9 @@ class TestBoundary:
                 "repro_torch.kernels.mwem_step, repro_torch.models, "
                 "repro_torch.serve.engine, repro_torch.launch.serve, "
                 "repro_torch.configs, repro_torch.kernels.flash_attention, "
-                "repro_torch.kernels.ssd_scan; "
+                "repro_torch.kernels.ssd_scan, repro_torch.kernels.mwu_update, "
+                "repro_torch.core.lp_scalar, repro_torch.core.lp_dual, "
+                "repro_torch.core.bregman, repro_torch.mips.transform; "
                 "assert not any(m == 'repro' or m.startswith('repro.') "
                 "for m in sys.modules)")
         env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

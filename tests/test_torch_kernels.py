@@ -281,9 +281,9 @@ class TestBuild:
     def test_every_source_has_a_library_name(self):
         stems = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
         assert stems == ["flash_attention", "ivf_probe", "mips_topk",
-                         "mwem_step", "ssd_scan"]
+                         "mwem_step", "mwu_update", "ssd_scan"]
         names = {_build._lib_path(p).name for p in _build.CSRC.glob("*.cu")}
-        assert len(names) == 5
+        assert len(names) == 6
 
     def test_require_rejects_cpu_tensors(self):
         with pytest.raises(ValueError, match="CUDA"):
