@@ -64,7 +64,10 @@
    K9 (the SSD scan) to their plain versions at edge shapes (four masks,
    GQA groups 1/3/8, head dims 12 to 128, ragged Sq and Skv, decode rows at
    a cache position with the kv range split, a softcap, rows that see no
-   key, bf16 and f32; ragged SSD chunks, y and the final state); serves the
+   key, bf16 and f32; K8's bf16 tensor-core prefill route up to llama's
+   heads at 2048 × 2048 and its decode route at Skv = 1 … 2112 with
+   g·Sq = 1 … 16, each case logged with the route `plan()` chose; ragged SSD
+   chunks, y and the final state); serves the
    two smoke configurations on the card and on the CPU with the same f32
    weights (logits, and tokens under the margin rule); then serves
    llama3.2-3b at its published widths and depth (28 layers, bf16, random
@@ -76,7 +79,8 @@
    launched 24 times a prefill); profiles one prefill and one decode window
    of each (the ``serve/engine/*`` ranges); and times K8 at the prefill and
    decode shapes and K9 at the prefill shape beside their plain versions
-   and, for K8, `scaled_dot_product_attention` as the library yardstick.
+   and, for K8, `scaled_dot_product_attention` as the library yardstick
+   (the decode row also by 200 back-to-back replays, `replayed_ms`).
    Before that, right after step 6's small waves, IVF waves of 17 and 24
    lanes (more than one K5 launch takes) must equal their lanes run one by
    one.
@@ -462,30 +466,62 @@ def lm_edge_shapes(dev, g, expect) -> None:
     Tolerances: f32 rtol/atol 2e-4 (the reference's kernel tests: an online
     softmax or a chunked scan against one pass, sums in another order; the
     scan's atol scaled by the output's magnitude); bf16 2e-2 (outputs
-    rounded to 8 mantissa bits)."""
+    rounded to 8 mantissa bits; the `mma` route also rounds P to bf16
+    before P·V, ≈ 2**-9 relative a weight). Each K8 case logs the route
+    `plan()` chose for it."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import plan
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    # (B, Hq, Hkv, Sq, Skv, D, mode, window, q_offset, softcap)
+    f32, bf = torch.float32, torch.bfloat16
+    # (B, Hq, Hkv, Sq, Skv, D, mode, window, q_offset, softcap, dtypes)
+    both = (f32, bf)
     cases = [
-        (2, 4, 4, 100, 100, 64, "full", 0, 0, 0.0),         # GQA 1
-        (1, 24, 8, 257, 257, 128, "causal", 0, 0, 0.0),     # GQA 3, llama heads
-        (2, 16, 2, 70, 130, 64, "causal", 0, 60, 0.0),      # GQA 8, continuation
-        (1, 8, 1, 129, 129, 128, "window", 33, 0, 0.0),
-        (1, 6, 2, 150, 150, 64, "chunk", 40, 0, 0.0),
-        (3, 24, 8, 1, 2112, 128, "causal", 0, 1500, 0.0),   # decode, kv split
-        (2, 8, 1, 1, 700, 128, "window", 100, 650, 0.0),    # decode, GQA 8
-        (2, 12, 3, 4, 300, 64, "causal", 0, 296, 0.0),      # 16 rows of Sq 4
-        (1, 4, 2, 45, 77, 12, "causal", 0, 0, 0.0),         # smoke head dim
-        (1, 4, 1, 50, 50, 100, "causal", 0, 0, 30.0),       # ragged D, softcap
-        (1, 2, 1, 4, 30, 64, "chunk", 16, 40, 0.0),         # rows see no key
+        (2, 4, 4, 100, 100, 64, "full", 0, 0, 0.0, both),         # GQA 1
+        (1, 24, 8, 257, 257, 128, "causal", 0, 0, 0.0, both),     # GQA 3, llama heads
+        (2, 16, 2, 70, 130, 64, "causal", 0, 60, 0.0, both),      # GQA 8, continuation
+        (1, 8, 1, 129, 129, 128, "window", 33, 0, 0.0, both),
+        (1, 6, 2, 150, 150, 64, "chunk", 40, 0, 0.0, both),
+        (3, 24, 8, 1, 2112, 128, "causal", 0, 1500, 0.0, both),   # decode, kv split
+        (2, 8, 1, 1, 700, 128, "window", 100, 650, 0.0, both),    # decode, GQA 8
+        (2, 12, 3, 4, 300, 64, "causal", 0, 296, 0.0, both),      # 16 rows of Sq 4
+        (1, 4, 2, 45, 77, 12, "causal", 0, 0, 0.0, both),         # smoke head dim
+        (1, 4, 1, 50, 50, 100, "causal", 0, 0, 30.0, both),       # ragged D, softcap
+        (1, 2, 1, 4, 30, 64, "chunk", 16, 40, 0.0, both),         # rows see no key
+        # the bf16 tensor-core prefill route
+        (1, 24, 8, 2048, 2048, 128, "causal", 0, 0, 0.0, (bf,)),  # llama heads at full length
+        (1, 24, 8, 333, 333, 128, "causal", 0, 0, 0.0, (bf,)),    # 999 rows: no 16 or BQ multiple
+        (2, 6, 2, 40, 40, 64, "causal", 0, 0, 0.0, (bf,)),        # Skv < 64
+        (1, 8, 8, 20, 50, 128, "full", 0, 0, 0.0, (bf,)),         # GQA 1, Skv < 64
+        (1, 16, 2, 200, 456, 128, "causal", 0, 256, 0.0, (bf,)),  # GQA 8, continuation
+        (1, 24, 8, 700, 700, 128, "window", 150, 0, 0.0, (bf,)),  # window over tiles
+        (1, 24, 8, 700, 700, 128, "chunk", 192, 0, 0.0, (bf,)),   # chunk over tiles
+        (2, 8, 1, 500, 500, 64, "chunk", 100, 0, 0.0, (bf,)),     # GQA 8 chunk
+        (2, 6, 2, 300, 300, 12, "causal", 0, 0, 0.0, (bf,)),      # D 12
+        (1, 6, 3, 260, 260, 100, "window", 70, 0, 0.0, (bf,)),    # D 100, scalar loads
+        (2, 8, 1, 3, 500, 64, "causal", 0, 497, 0.0, (bf,)),      # 24 rows
+        (1, 8, 1, 4, 30, 64, "chunk", 16, 40, 0.0, both),         # 32 rows see no key
+        # the decode route: Skv 1, 63, 64, 65, 2112; g·Sq 1, 2, 3, 8, 16
+        (2, 8, 8, 1, 1, 128, "causal", 0, 0, 0.0, both),
+        (1, 24, 8, 1, 63, 128, "causal", 0, 62, 0.0, both),
+        (2, 8, 1, 1, 64, 64, "causal", 0, 63, 0.0, both),
+        (1, 16, 1, 1, 65, 128, "full", 0, 64, 0.0, both),
+        (4, 24, 8, 1, 2112, 128, "causal", 0, 1901, 0.0, both),  # llama's decode
+        (2, 4, 4, 1, 2112, 64, "window", 300, 2000, 0.0, both),
+        (1, 8, 1, 1, 2112, 128, "chunk", 512, 2111, 0.0, both),
+        (1, 8, 2, 4, 2112, 128, "causal", 0, 2108, 0.0, both),
+        (2, 4, 2, 1, 700, 64, "causal", 0, 699, 0.0, both),
+        (1, 8, 8, 1, 65, 12, "causal", 0, 64, 0.0, both),
+        (2, 3, 1, 1, 63, 100, "causal", 0, 62, 20.0, both),
     ]
-    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
-        for B, Hq, Hkv, Sq, Skv, D, mode, window, off, cap in cases:
+    routes = {}
+    for B, Hq, Hkv, Sq, Skv, D, mode, window, off, cap, dtypes in cases:
+        for dtype in dtypes:
+            tol = 2e-4 if dtype == f32 else 2e-2
             q = (randn(B, Hq, Sq, D) * (4.0 if cap else 1.0)).to(dtype)
             k, v = randn(B, Hkv, Skv, D).to(dtype), randn(B, Hkv, Skv, D).to(dtype)
             kw = dict(mode=mode, window=window, q_offset=off, logit_softcap=cap)
@@ -495,9 +531,16 @@ def lm_edge_shapes(dev, g, expect) -> None:
                 got.float(), want.float(), rtol=tol, atol=tol)
             if mode == "chunk" and off == 40:  # no key visible: exact zeros
                 ok = ok and not bool(got.any())
-            expect(ok, f"flash_attention {dtype} B={B} Hq={Hq} Hkv={Hkv} "
-                   f"Sq={Sq} Skv={Skv} D={D} {mode} w={window} off={off} "
-                   f"cap={cap}: max err {err}")
+            p = plan(B, Hq, Hkv, Sq, Skv, D, dtype)
+            key = f"{p.route} {str(dtype)[6:]}"
+            routes[key] = routes.get(key, 0) + 1
+            shape = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {mode} "
+                     f"w={window} off={off} cap={cap}")
+            log(f"flash_attention {str(dtype)[6:]} {shape}: route {p.route} "
+                f"bq={p.bq} nsplit={p.nsplit}, max err {err:.3g}")
+            expect(ok, f"flash_attention {dtype} {shape} ({p.route}): "
+                   f"max err {err}")
+    log(json.dumps({"flash_attention_edge_routes": routes}))
     # (B, S, H, P, N, chunk)
     for B, S, H, P, N, chunk in ((2, 37, 3, 8, 12, 8), (1, 100, 2, 64, 128, 64),
                                  (2, 130, 4, 16, 16, 16), (1, 64, 1, 128, 128, 64),
@@ -805,13 +848,18 @@ def lm_phases(args, dev, expect, ops) -> list:
         ms, plain_ms = time_ms(kern), time_ms(plain)
         lib_ms = time_ms(lib) if lib is not None else None
         b_ms, b_by = bound_ms(nbytes, flops, peak)
-        rows.append({"name": row, "route": "cuda", "source": SOURCES[row],
-                     "replaces": REPLACES[row], "launches": n_launch,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        out = {"name": row, "route": "cuda", "source": SOURCES[row],
+               "replaces": REPLACES[row], "launches": n_launch,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if row == "flash_attention:decode":  # a few µs: the event pair's floor
+            out["replayed_ms"] = dict(zip(("kernel", "plain", "library"),
+                                          (replayed_ms(f) for f in (kern, plain, lib))))
+        rows.append(out)
         log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}")
+            f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}"
+            + (f", back-to-back {out['replayed_ms']}" if "replayed_ms" in out else ""))
     log(json.dumps({"lm_timing_shapes": {
         "flash_attention": [B, Hq, Hkv, S_pre, S_pre, D],
         "flash_attention:decode": [B, Hq, Hkv, 1, L, D, pos_dec],

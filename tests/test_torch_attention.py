@@ -137,18 +137,115 @@ class TestWrapper:
         with pytest.raises(ValueError, match="GQA"):
             flash_attention(q[:, :3], k, v)
 
-    @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,want", [
-        (4, 24, 8, 2048, 2048, 128, (64, 128, 1)),   # llama3.2-3b prefill
-        (1, 24, 8, 1987, 1987, 128, (64, 128, 1)),   # a refill prefill
-        (4, 24, 8, 1, 2112, 128, (16, 128, 8)),      # llama3.2-3b decode
-        (1, 4, 2, 1, 30, 12, (16, 32, 1)),           # one kv tile: no split
-        (2, 8, 1, 2, 500, 64, (16, 64, 8)),          # g·Sq = 16 rows
-        (2, 8, 1, 3, 500, 64, (64, 64, 8)),          # g·Sq = 24 rows
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                             ids=["bf16", "f32"])
+    @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,want_bf16,want_f32", [
+        # llama3.2-3b prefill: 64-row blocks, no split
+        (4, 24, 8, 2048, 2048, 128, ("mma", 64, 128, 1), ("f32", 64, 128, 1)),
+        # a refill prefill
+        (1, 24, 8, 1987, 1987, 128, ("mma", 64, 128, 1), ("f32", 64, 128, 1)),
+        # llama3.2-3b decode: 33 tiles in 8 splits, 256 blocks
+        (4, 24, 8, 1, 2112, 128, ("decode", 3, 128, 8), ("decode", 3, 128, 8)),
+        # one kv tile: no split
+        (1, 4, 2, 1, 30, 12, ("decode", 2, 32, 1), ("decode", 2, 32, 1)),
+        # g·Sq = 16 rows: still decode, one tile a split
+        (2, 8, 1, 2, 500, 64, ("decode", 16, 64, 8), ("decode", 16, 64, 8)),
+        # g·Sq = 24 rows: prefill; only the f32 route splits a small grid
+        (2, 8, 1, 3, 500, 64, ("mma", 64, 64, 1), ("f32", 64, 64, 8)),
+        # g = 8 decode over a long cache: one tile a split
+        (1, 8, 1, 1, 5000, 64, ("decode", 8, 64, 79), ("decode", 8, 64, 79)),
+        # 16 rows of g = 16, D = 100 padded to 128
+        (2, 16, 1, 1, 100, 100, ("decode", 16, 128, 2), ("decode", 16, 128, 2)),
+        # 12 rows of Sq 6: decode rows round up to 16
+        (1, 6, 3, 6, 64, 128, ("decode", 16, 128, 1), ("decode", 16, 128, 1)),
+        # MHA decode: one row a block
+        (3, 8, 8, 1, 300, 64, ("decode", 1, 64, 5), ("decode", 1, 64, 5)),
+        # g·Sq = 5 rounds up to 8
+        (1, 5, 1, 1, 64, 32, ("decode", 8, 32, 1), ("decode", 8, 32, 1)),
+        # 68 rows, a grid of 16 blocks
+        (1, 32, 8, 17, 17, 64, ("mma", 64, 64, 1), ("f32", 64, 64, 1)),
+        # 18 rows, one block: the f32 route splits 5 tiles
+        (1, 2, 1, 9, 300, 32, ("mma", 64, 32, 1), ("f32", 64, 32, 5)),
     ])
-    def test_launch_plan(self, B, Hq, Hkv, Sq, Skv, D, want):
-        """The decode route takes 16-row tiles, and a grid under two blocks
-        an SM splits the kv range (at most one split a 64-key tile)."""
-        assert fa_ops.plan(B, Hq, Hkv, Sq, Skv, D) == want
+    def test_launch_plan(self, B, Hq, Hkv, Sq, Skv, D, want_bf16, want_f32, dtype):
+        """bf16 prefill (g·Sq > 16) takes the tensor-core route, f32 prefill
+        the CUDA-core route, which splits a grid under two blocks an SM (at
+        most one split a 64-key tile); g·Sq ≤ 16 takes the decode route in
+        either dtype, its kv range split into whole tiles for about two
+        blocks an SM (one wave)."""
+        want = want_bf16 if dtype == torch.bfloat16 else want_f32
+        got = fa_ops.plan(B, Hq, Hkv, Sq, Skv, D, dtype)
+        assert tuple(got) == want
+        assert got.route in fa_ops.ROUTES
+        if got.route == "decode":
+            assert (Hq // Hkv) * Sq <= got.bq
+            assert got.nsplit <= -(-Skv // fa_ops.KV_TILE)
+            assert B * Hkv * got.nsplit <= max(fa_ops.TARGET_BLOCKS, B * Hkv)
+
+
+# ------------------------------------ the `mma` route's numerics, emulated
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_mma_route(q, k, v, mode, window=0, q_offset=0, softcap=0.0):
+    """The bf16 prefill route's arithmetic in torch: S = Q·Kᵀ in f32 over
+    64-key tiles, scale (and log2 e) applied to S in f32 — q·scale is never
+    rounded to bf16 —, an online softmax in the log2 domain from the −1e30
+    sentinel, P rounded to bf16 before P·V into an f32 accumulator, and the
+    output normalised by 1/max(l, 1e-30) and rounded to bf16."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g, scale = Hq // Hkv, D ** -0.5
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    mask = make_mask(Sq, Skv, mode, window, q_offset)
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, D))
+    for t0 in range(0, Skv, fa_ops.KV_TILE):
+        t1 = min(t0 + fa_ops.KV_TILE, Skv)
+        s = qf @ kf[:, :, t0:t1].transpose(-1, -2)
+        if softcap > 0:
+            s = softcap * torch.tanh(s * scale / softcap) * LOG2E
+        else:
+            s = s * (scale * LOG2E)
+        s = s.masked_fill(~mask[:, t0:t1], -torch.inf)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - mn), torch.exp2(s - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, t0:t1]
+        m = mn
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+class TestMmaRouteNumerics:
+    @pytest.mark.parametrize("Sq,Skv,mode,window,q_offset,cap", [
+        (150, 150, "causal", 0, 0, 0.0),      # three tiles, the last ragged
+        (70, 200, "causal", 0, 130, 0.0),     # a continuation
+        (130, 130, "window", 40, 0, 0.0),
+        (130, 130, "chunk", 64, 0, 0.0),
+        (100, 100, "causal", 0, 0, 30.0),     # softcap
+    ])
+    def test_emulation_within_bf16_tolerance(self, Sq, Skv, mode, window,
+                                             q_offset, cap):
+        """llama-like heads (g = 3, D = 128) in bf16: the route's rounding
+        of P to bf16 (≈ 2⁻⁹ relative a weight) stays inside the 2e-2 bf16
+        tolerance against both plain versions, the port's and the JAX
+        reference's."""
+        q, k, v = _qkv(Sq + Skv, 1, 6, 2, Sq, Skv, 128)
+        q = q * (4.0 if cap else 1.0)
+        qt, kt, vt = (torch.as_tensor(x).to(torch.bfloat16) for x in (q, k, v))
+        got = _emulate_mma_route(qt, kt, vt, mode, window, q_offset, cap)
+        kw = dict(mode=mode, window=window, q_offset=q_offset, logit_softcap=cap)
+        want = attention_ref(qt, kt, vt, **kw)
+        jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+        oracle = jax_attention_ref(jq, jk, jv, **kw)
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                                   **BF16_TOL)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(oracle, np.float32), **BF16_TOL)
 
 
 # --------------------------------------------------- the attention layer
