@@ -261,6 +261,29 @@ def replayed_ms(fn, n: int = 200) -> float:
     return a.elapsed_time(b) / n
 
 
+def stage_ms(fn, reps: int = 20) -> dict:
+    """Mean device ms a call of ``fn`` spends in each kernel it launches,
+    by kernel name, from one `torch.profiler` trace of ``reps`` calls: the
+    stages (score, select, decode) of a multi-launch kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].rsplit("::", 1)[-1]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
 def bound_ms(nbytes: float, flops: float,
              flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
@@ -382,6 +405,128 @@ def profile_window(run, step_kernel: str = "mwem_step_kernel") -> tuple:
                  "busy_share": busy_ms / window_ms,
                  "device_ops_per_iter": len(inside) / n_it,
                  "top": [[name[:60], us / 1e3 / n_it] for name, us in top]}
+
+
+# ------------------------------------------- K1 and K5: their select's edges
+
+def k1_edge_cases(dev, g, expect) -> None:
+    """K1 against its plain version on each of its routes (`ops.plan`:
+    ``split`` up to 4096 candidates, ``narrow`` at d ≤ 32, ``rows``) in all
+    three modes: the three main-path shapes at reduced n (d = 21 with
+    k = 512, d = 2**14 with k = 10, d = 300 with k = 32), k = 1, k = the
+    candidate count (or MAX_K), k = MAX_K, and bit for bit (ids and scores
+    equal): integer-valued rows, all-equal rows (the tie rank decides every
+    place), ±0.0 scores and ±inf scores, each cut through its ties."""
+    import torch
+    from repro_torch.kernels.mips_topk import MODES, mips_topk, mips_topk_ref
+    from repro_torch.kernels.mips_topk.ops import MAX_K, plan
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def randint(*shape, lo=-3, hi=4):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float()
+
+    def check(V, q, k, mode, what, exact=False):
+        n, d = V.shape
+        got, want = mips_topk(V, q, k, mode), mips_topk_ref(V, q, k, mode)
+        if exact:
+            ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            err = 0.0 if ok else math.inf
+        else:
+            ok, err = same_topk(*got, *want,
+                                f32_tol(d, float((V.abs() @ q.abs()).max())))
+        expect(ok, f"mips_topk {mode} {what} n={n} d={d} k={k} "
+               f"({plan(n, d, k, mode)['route']}): max err {err}")
+
+    for n, d, k in ((20000, 21, 512), (300, 2 ** 14, 10), (700, 300, 32)):
+        V, q = randn(n, d), randn(d)
+        for mode in MODES:
+            check(V, q, k, mode, "main-path shape")
+    for n, d in ((700, 300), (4500, 21), (5000, 64), (20, 5)):
+        for mode in MODES:
+            n_cand = 2 * n if mode == "aug" else n
+            V, q = randn(n, d), randn(d)
+            for k in sorted({1, min(n_cand, MAX_K)}):
+                check(V, q, k, mode, "random")
+            kk = min(n_cand // 2 + 3, MAX_K)
+            check(randint(n, d), randint(d), kk, mode, "integer", exact=True)
+            check(torch.ones(n, d, device=dev), randint(d, lo=1), kk, mode,
+                  "all-equal rows", exact=True)
+            Vz = torch.zeros(n, d, device=dev)
+            Vz[1::3] = -0.0
+            Vz[2::3] = randint(len(range(2, n, 3)), d, lo=1)
+            q = randint(d, lo=1)
+            n_pos = len(range(2, n, 3))  # rows > 0; aug adds their −s below ±0
+            check(Vz, q, min(n_pos + (n - n_pos) // 2 + 1, n_cand), mode,
+                  "±0.0", exact=True)
+            Vi = randint(n, d)
+            Vi[::4, 0], Vi[2::4, 0] = math.inf, -math.inf
+            q = randint(d, lo=1)
+            for k in sorted({min(len(range(0, n, 4)) + 1, n_cand),
+                             min(n_cand, MAX_K)}):
+                check(Vi, q, k, mode, "±inf", exact=True)
+    for n, d, mode in ((9000, 21, "plain"), (5000, 64, "aug"), (8192, 300, "abs")):
+        check(randn(n, d), randn(d), MAX_K, mode, "k = MAX_K")
+    torch.cuda.synchronize()
+
+
+def k5_edge_cases(dev, g, expect) -> None:
+    """K5 against its plain version: d that is no multiple of the d-split
+    (the last split short; d % 4 ≠ 0 takes 4-byte copies), lanes 1, 3, 8
+    and 16, a probed cell of pad rows only, k above a lane's valid rows
+    (ids −1, scores −inf past them), cap no multiple of an item's rows.
+    n_valid exactly; ids and scores bit for bit on integer-valued rows,
+    else within `f32_tol`. Each case logs the plan's splits."""
+    import torch
+    from repro_torch.kernels.ivf_probe import (batch_probe_slots,
+                                               ivf_probe_stream_batch,
+                                               ivf_probe_stream_batch_ref)
+    from repro_torch.kernels.ivf_probe.ops import wave_plan
+
+    def case(lanes, d, k, integer, what, nlist=40, cap=150, n_ok=120,
+             nprobe=4, empty=False):
+        if integer:
+            rows = torch.randint(-3, 4, (nlist, cap, d), generator=g,
+                                 device=dev).float()
+            qb = torch.randint(-3, 4, (lanes, d), generator=g, device=dev).float()
+        else:
+            rows = torch.randn(nlist, cap, d, generator=g, device=dev)
+            qb = torch.randn(lanes, d, generator=g, device=dev)
+        ids = torch.arange(nlist * cap, device=dev,
+                           dtype=torch.int32).reshape(nlist, cap)
+        ids[:, n_ok:] = -1
+        rows[:, n_ok:] = 0
+        cents = torch.randn(nlist, d, generator=g, device=dev)
+        slots, member, _ = batch_probe_slots(cents, qb, nprobe)
+        if empty:  # the first probed cell holds pad rows only
+            ids[int(slots[0])] = -1
+            rows[int(slots[0])] = 0
+        got = ivf_probe_stream_batch(slots, member, rows, ids, qb, k)
+        want = ivf_probe_stream_batch_ref(slots, member, rows, ids, qb, k)
+        ok, err = torch.equal(got[2], want[2]), 0.0
+        if integer:
+            ok = ok and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        else:
+            tol = f32_tol(d, float((rows.abs().reshape(-1, d) @ qb.abs().T).max()))
+            for b in range(lanes):
+                ok_b, err_b = same_topk(got[0][b], got[1][b], want[0][b],
+                                        want[1][b], tol)
+                ok, err = ok and ok_b, max(err, err_b)
+        p = wave_plan(slots.numel(), cap, d, lanes)
+        expect(ok, f"ivf_probe_batch {what} B={lanes} d={d} k={k} "
+               f"(splits {p['splits']} of {p['dsplit']}): max err {err}, "
+               f"n_valid {got[2].tolist()} / {want[2].tolist()}")
+
+    for d in (2000, 1500, 2001):  # two splits of 1024 at 8 lanes, the last short
+        case(8, d, 64, False, "ragged split")
+        case(8, d, 64, True, "ragged split, integer")
+    for lanes in (1, 3, 8, 16):
+        case(lanes, 1500, 50, False, "lanes")
+        case(lanes, 1500, 50, True, "lanes, integer")
+        case(lanes, 520, 40, True, "pad-only cell", empty=True)
+        case(lanes, 300, 500, False, "k above the valid rows", nprobe=2)
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------------ the LM serving tier
@@ -1331,6 +1476,10 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
          4.0 * n_act_d * DUAL_M + 4 * DUAL_M + 13 * capd,
          2.0 * n_act_d * DUAL_M),
     ]
+    library = {  # K1's yardstick, as for the main path's rows
+        "mips_topk:lp": lambda: torch.topk(torch.mv(Ab, xq), k),
+        "mips_topk:dual": lambda: torch.topk(torch.mv(N, y), kd),
+    }
     for row, name, n_launch, kern, plain, tol, nbytes, flops in cases:
         got, want = kern(), plain()
         if "gather_score" in name:
@@ -1342,13 +1491,26 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
                 ok = ok and int(got[2]) == int(want[2])
         expect(ok, f"{row} at its path's shape: max err {err} (tol {tol})")
         ms, plain_ms = time_ms(kern), time_ms(plain)
+        lib_ms = time_ms(library[row]) if row in library else None
         b_ms, b_by = bound_ms(nbytes, flops)
-        rows.append({"name": row, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": n_launch,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}), max err {err:.3g}, launches {n_launch}")
+        out = {"name": row, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": n_launch,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if lib_ms is not None:
+            out["library"] = "torch.topk(torch.mv(V, q), k): two calls"
+        if name in ("mips_topk", "ivf_probe"):
+            out["replayed_ms"] = {"kernel": replayed_ms(kern),
+                                  "plain": replayed_ms(plain),
+                                  "library": replayed_ms(library[row])
+                                  if row in library else None}
+        rows.append(out)
+        if row == "mips_topk:lp":
+            log(json.dumps({"stages_ms": row, **stage_ms(kern)}))
+        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}"
+            f"{'; back to back ' + json.dumps(out['replayed_ms']) if 'replayed_ms' in out else ''}")
     return rows
 
 
@@ -1420,6 +1582,7 @@ def main() -> int:
                                                ivf_probe_stream_batch,
                                                ivf_probe_stream_batch_ref,
                                                ivf_probe_stream_ref)
+    from repro_torch.kernels.ivf_probe.ops import wave_plan
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
     from repro_torch.kernels.mwem_step import (MAX_U, gather_score,
                                                gather_score_batch,
@@ -1526,6 +1689,8 @@ def main() -> int:
                f"gather_score u={u}: max err {err}")
     torch.cuda.synchronize()
     log(f"edge shapes: {'ok' if not failures else 'FAILED'}")
+    k1_edge_cases(dev, g, expect)
+    log(f"K1 select edge cases: {'ok' if not failures else 'FAILED'}")
     lm_edge_shapes(dev, g, expect)
     log(f"LM kernel edge shapes: {'ok' if not failures else 'FAILED'}")
 
@@ -1642,6 +1807,8 @@ def main() -> int:
                f"gather_score_batch u={u}: max err {err}")
     torch.cuda.synchronize()
     log(f"wave edge shapes: {'ok' if not failures else 'FAILED'}")
+    k5_edge_cases(dev, g, expect)
+    log(f"K5 edge cases: {'ok' if not failures else 'FAILED'}")
 
     # ---------------------------------------- small wave, card vs CPU
     rng_b = np.random.default_rng([args.seed, 1])  # leaves `rng` to the main path
@@ -2058,10 +2225,24 @@ def main() -> int:
     n_unique = int((member.sum(1) > 0).sum())
     rows_read = float((rows_ok * (member.sum(1) > 0)).sum())  # unique cells
     pairs = float((rows_ok * member.sum(1).double()).sum())   # (row, lane)
+    # K5's grid: (blocks a split, splits); an item is a slot's chunk of rows,
+    # busy when it holds a valid row (the unique slots come first)
+    wp = wave_plan(slots.numel(), cap8, U, LANES)
+    span = wp["chunks"] * wp["rows_per_item"]
+    ok_rows = torch.nn.functional.pad(ivf._cells8[slots[:n_unique].long()] >= 0,
+                                      (0, span - cap8))
+    busy_items = int(ok_rows.reshape(n_unique, wp["chunks"], -1).any(-1).sum())
     log(json.dumps({"wave_probe_plan": {"slots": slots.numel(),
                                         "unique_cells": n_unique,
                                         "rows_read": rows_read,
-                                        "row_lane_pairs": pairs}}))
+                                        "row_lane_pairs": pairs,
+                                        "kernel_plan": wp,
+                                        "busy_items": busy_items,
+                                        "busy_blocks": busy_items * wp["splits"],
+                                        "grid_blocks": wp["blocks_per_split"]
+                                        * wp["splits"],
+                                        "sms": torch.cuda.get_device_properties(
+                                            dev).multi_processor_count}}))
     lw_b = torch.zeros(LANES, U, device=dev)
     p_b = torch.softmax(lw_b, 1)
     ps_b = waves["ivf"].p_hat.clone()
@@ -2145,6 +2326,15 @@ def main() -> int:
                                      noise_fb, rule="hardt", eta=eta_f),
          None, LANES * (4.0 * 7 * Wm.U + 12) + 4.0 * Wm.U, LANES * 12.0 * Wm.U),
     ]
+    # One PyTorch composition that computes K1's function, timed beside it
+    # as its yardstick (the port never calls it). K5 has none: it is a
+    # gather, a product, a mask and a top-k a lane.
+    library = {
+        "mips_topk": (lambda: torch.topk(torch.cat([s := torch.mv(Q, v), -s]), k),
+                      "torch.topk(torch.cat([s, -s]), k) over s = torch.mv(Q, v)"),
+        "mips_topk:plain": (lambda: torch.topk(torch.mv(cents, v), ivf.nprobe),
+                            "torch.topk(torch.mv(V, q), k): two calls"),
+    }
     rows_out = []
     for row, name, mode, n_launch, kern, plain, tol, nbytes, flops in cases:
         got, want = kern(), plain()
@@ -2168,19 +2358,31 @@ def main() -> int:
                      for a, b in zip(got, want))
         expect(ok, f"{row} at main-path shapes: max err {err} (tol {tol})")
         ms, plain_ms = time_ms(kern), time_ms(plain)
+        lib = library.get(row)
+        lib_ms = time_ms(lib[0]) if lib else None
         b_ms, b_by = bound_ms(nbytes, flops)
         out = {"name": row, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": n_launch,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if lib:
+            out["library"] = lib[1]
+        if name in ("mips_topk", "ivf_probe", "ivf_probe_batch"):
+            out["replayed_ms"] = {"kernel": replayed_ms(kern),
+                                  "plain": replayed_ms(plain),
+                                  "library": replayed_ms(lib[0]) if lib else None}
         if mode:
             out["mode"] = mode
         if row in TIMING_ONLY:
             log(json.dumps({"timing_only": out}))
         else:
             rows_out.append(out)
-        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by}), max err {err:.3g}, launches {n_launch}")
+        if row in ("mips_topk", "ivf_probe_batch"):
+            log(json.dumps({"stages_ms": row, **stage_ms(kern)}))
+        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}"
+            f"{'; back to back ' + json.dumps(out['replayed_ms']) if 'replayed_ms' in out else ''}")
 
     rows_out += lp_phases(args, dev, g, expect, ops)
     rows_out += lm_phases(args, dev, expect, ops)

@@ -1,5 +1,6 @@
-// Shared device code of the port's kernels: the warp dot product every
-// kernel scores with, and the streaming top-k of mips_topk and ivf_probe.
+// Shared device code of the port's kernels: the 64-bit candidate keys of
+// the top-k kernels (selected by topk_select.cuh) and the warp dot product
+// that mips_topk, ivf_probe and mwem_step score with.
 //
 // A candidate is one 64-bit key: the high word is an order-preserving image
 // of its f32 score, the low word is (0xFFFFFFFF - tie), where `tie` is the
@@ -8,14 +9,6 @@
 // ties by ascending `tie` -- one integer comparison carries the reference's
 // whole tie order. Key 0 is "no candidate": it sorts below every real key
 // (even a score of -inf) and decodes to id -1, score -inf.
-//
-// A top-k is found in two stages: each block of the scoring kernel sorts its
-// own candidates in shared memory and writes its best `kout`; then
-// `topk_merge_kernel` rounds sort groups of `group` keys and keep the best
-// `k` of each, until one sorted run is left. Only the candidates' keys ever
-// reach device memory, never the full score vector. A batched probe merges
-// several independent top-k at once: lane l's keys start `stride` keys after
-// lane l-1's, and the merge grid's second dimension is the lane.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,102 +78,28 @@ __device__ __forceinline__ float warp_dot(const float* __restrict__ row,
   return acc;
 }
 
-// Sort s[0..S) descending in shared memory (S a power of two).
-__device__ __forceinline__ void bitonic_sort_desc(uint64_t* s, int S) {
-  for (int size = 2; size <= S; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < S; i += blockDim.x) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const uint64_t a = s[i], b = s[j];
-          const bool desc = (i & size) == 0;
-          if (desc ? (a < b) : (a > b)) {
-            s[i] = b;
-            s[j] = a;
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Each block sorts `group` keys of `in` and writes its best k to `out`;
-// blockIdx.y is the lane, whose keys lie `stride` keys apart in both.
-__global__ void topk_merge_kernel(const uint64_t* __restrict__ in, long long n_in,
-                                  int group, int k, uint64_t* __restrict__ out,
-                                  long long stride) {
-  extern __shared__ uint64_t s[];
-  in += blockIdx.y * stride;
-  out += blockIdx.y * stride;
-  const long long base = static_cast<long long>(blockIdx.x) * group;
-  for (int i = threadIdx.x; i < group; i += blockDim.x) {
-    const long long g = base + i;
-    s[i] = g < n_in ? in[g] : kNoKey;
-  }
-  bitonic_sort_desc(s, group);
-  for (int i = threadIdx.x; i < k; i += blockDim.x)
-    out[static_cast<long long>(blockIdx.x) * k + i] = s[i];
-}
-
 inline int next_pow2(int x) {
   int p = 1;
   while (p < x) p <<= 1;
   return p;
 }
 
-inline long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+__host__ __device__ inline long long ceil_div(long long a, long long b) {
+  return (a + b - 1) / b;
+}
 
-constexpr int kMergeThreads = 1024;
 constexpr int kMaxK = 8192;
 
-inline int merge_group(int k) {
-  const int g = 2 * next_pow2(k);
-  return g < 4096 ? 4096 : g;
-}
-
-// Scratch keys needed to merge `n0` keys down to one sorted run of k:
-// two buffers, each as large as any round's input or output.
-inline long long merge_scratch_len(long long n0, int k) {
-  long long m = n0;
-  const long long first = ceil_div(n0, merge_group(k)) * k;
-  if (first > m) m = first;
-  if (k > m) m = k;
-  return 2 * m;
-}
-
-// Merge rounds on the stream. `a` holds n0 keys in `runs` sorted runs (for
-// each of `lanes` lanes, `stride` keys apart; `b` likewise); *result points
-// at the one sorted run left (length *len, lanes still `stride` apart).
-inline cudaError_t merge_rounds(uint64_t* a, uint64_t* b, long long n0, int runs,
-                                int k, cudaStream_t stream,
-                                const uint64_t** result, long long* len,
-                                int lanes = 1, long long stride = 0) {
-  const int group = merge_group(k);
-  const size_t smem = static_cast<size_t>(group) * sizeof(uint64_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  long long n = n0;
-  bool single = runs <= 1;
-  while (!single) {
-    const long long groups = ceil_div(n, group);
-    const dim3 grid(static_cast<unsigned>(groups), static_cast<unsigned>(lanes));
-    topk_merge_kernel<<<grid, kMergeThreads, smem, stream>>>(a, n, group, k, b,
-                                                             stride);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    n = groups * k;
-    single = groups == 1;
-    uint64_t* t = a;
-    a = b;
-    b = t;
-  }
-  *result = a;
-  *len = n;
-  return cudaSuccess;
+// Streaming multiprocessors of the current device, which the top-k kernels
+// size their grids from; 0 if the device cannot be queried.
+inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0 &&
+      cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    cached[dev] = 0;
+  return cached[dev];
 }
 
 }  // namespace rt

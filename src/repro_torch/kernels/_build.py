@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_WORKSPACES: dict[torch.device, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -84,6 +85,26 @@ def load(stem: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(paths[stem]))
         _LIBS[stem] = lib
     return lib
+
+
+def workspace(device: torch.device, words: int) -> torch.Tensor:
+    """The zeroed int32 workspace of the top-k kernels on ``device``
+    (``csrc/topk_select.cuh``): at least ``words`` words, kept for the
+    process. The kernels count and histogram in it and set every word they
+    raise back to 0 before they exit, so no call pays for a memset; calls
+    that share it run on one stream. It grows (a new zeroed buffer) only
+    outside CUDA-graph capture, where a fill would not run before the first
+    replay: run a call once before capturing it."""
+    device = torch.device("cuda", torch.cuda.current_device()
+                          if device.index is None else device.index)
+    ws = _WORKSPACES.get(device)
+    if ws is None or ws.numel() < words:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the top-k workspace must grow before CUDA-graph "
+                               "capture: run the call once uncaptured first")
+        ws = torch.zeros(max(words, 1 << 16), dtype=torch.int32, device=device)
+        _WORKSPACES[device] = ws
+    return ws
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -21,6 +21,7 @@ run the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,23 +35,43 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 MAX_LANES = 16  # lanes one K5 launch scores; ivf_probe_batch_max_lanes()
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ivf_probe")
-    lib.ivf_probe_scratch_len.argtypes = [_I, _I, _I]
+    lib.ivf_probe_scratch_len.argtypes = [_I, _I]
     lib.ivf_probe_scratch_len.restype = _L
+    lib.topk_workspace_len.argtypes = [_L]
+    lib.topk_workspace_len.restype = _L
     lib.ivf_probe_launch.argtypes = [_P, _I, _P, _P, _I, _I, _P, _I, _P, _L,
-                                     _P, _P, _P, _P]
+                                     _P, _L, _P, _P, _P, _P]
     lib.ivf_probe_launch.restype = _I
     lib.ivf_probe_batch_max_lanes.argtypes = []
     lib.ivf_probe_batch_max_lanes.restype = _I
-    lib.ivf_probe_batch_scratch_len.argtypes = [_I, _I, _I, _I]
-    lib.ivf_probe_batch_scratch_len.restype = _L
+    lib.ivf_probe_batch_plan.argtypes = [_I, _I, _I, _I, _P]
+    lib.ivf_probe_batch_plan.restype = _I
     lib.ivf_probe_batch_launch.argtypes = [_P, _P, _I, _I, _P, _P, _I, _I, _P,
-                                           _I, _P, _L, _P, _P, _P, _P]
+                                           _I, _P, _L, _P, _L, _P, _P, _P, _P]
     lib.ivf_probe_batch_launch.restype = _I
     if lib.ivf_probe_batch_max_lanes() != MAX_LANES:
         raise RuntimeError("csrc/ivf_probe.cu and ops.MAX_LANES disagree")
     return lib
+
+
+def wave_plan(n_slots: int, cap: int, d: int, lanes: int) -> dict:
+    """K5's launch plan on the current card: splits of d and floats a
+    split, rows an item (a slot's row chunk), chunks a slot, blocks a split
+    (the grid is blocks × splits), items, scratch words."""
+    return dict(_wave_plan(n_slots, cap, d, lanes, torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=256)
+def _wave_plan(n_slots, cap, d, lanes, device_index) -> tuple:
+    out = (ctypes.c_longlong * 7)()
+    if _lib().ivf_probe_batch_plan(n_slots, cap, d, lanes, out) != 0:
+        raise RuntimeError("ivf_probe_batch: cannot plan the launch")
+    keys = ("splits", "dsplit", "rows_per_item", "chunks", "blocks_per_split",
+            "items", "scratch")
+    return tuple(zip(keys, out))
 
 
 def ivf_probe_stream(probe: torch.Tensor, cell_rows: torch.Tensor,
@@ -69,14 +90,18 @@ def ivf_probe_stream(probe: torch.Tensor, cell_rows: torch.Tensor,
     _build.require("cells", cells, torch.int32, shape=(nlist, cap))
     _build.require("q", q, torch.float32, shape=(d,))
     lib = _lib()
-    scratch = torch.empty(lib.ivf_probe_scratch_len(nprobe, cap, k),
-                          dtype=torch.int64, device=dev)
+    words = lib.ivf_probe_scratch_len(nprobe, cap)
+    if words < 0:
+        raise RuntimeError("ivf_probe: cannot query the device's SM count")
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    ws = _build.workspace(dev, lib.topk_workspace_len(0))
     ids = torch.empty(k, dtype=torch.int32, device=dev)
     scores = torch.empty(k, dtype=torch.float32, device=dev)
     n_valid = torch.empty((), dtype=torch.int32, device=dev)
     err = lib.ivf_probe_launch(probe.data_ptr(), nprobe, cell_rows.data_ptr(),
                                cells.data_ptr(), cap, d, q.data_ptr(), k,
                                scratch.data_ptr(), scratch.numel(),
+                               ws.data_ptr(), ws.numel(),
                                ids.data_ptr(), scores.data_ptr(),
                                n_valid.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "ivf_probe")
@@ -119,16 +144,17 @@ def ivf_probe_stream_batch(slots: torch.Tensor, member: torch.Tensor,
     _build.require("cells", cells, torch.int32, shape=(nlist, cap))
     _build.require("Vb", Vb, torch.float32, shape=(B, d))
     lib = _lib()
-    scratch = torch.empty(lib.ivf_probe_batch_scratch_len(n_slots, cap, k, B),
-                          dtype=torch.int64, device=dev)
+    p = wave_plan(n_slots, cap, d, B)
+    scratch = torch.empty(p["scratch"], dtype=torch.int64, device=dev)
+    ws = _build.workspace(dev, lib.topk_workspace_len(p["items"] + p["splits"]))
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     scores = torch.empty((B, k), dtype=torch.float32, device=dev)
     n_valid = torch.empty(B, dtype=torch.int32, device=dev)
     err = lib.ivf_probe_batch_launch(
         slots.data_ptr(), member.data_ptr(), n_slots, B, cell_rows.data_ptr(),
         cells.data_ptr(), cap, d, Vb.data_ptr(), k, scratch.data_ptr(),
-        scratch.numel(), ids.data_ptr(), scores.data_ptr(), n_valid.data_ptr(),
-        _build.stream_ptr(dev))
+        scratch.numel(), ws.data_ptr(), ws.numel(), ids.data_ptr(),
+        scores.data_ptr(), n_valid.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "ivf_probe_batch")
     ivf_probe_stream_batch.launches += 1
     return ids, scores, n_valid

@@ -3,12 +3,14 @@
 ``mode`` picks the ranking: ``plain`` ⟨V_j, q⟩, ``abs`` |⟨V_j, q⟩|, or
 ``aug`` — the complement-augmented set, +score as id j and −score as id
 j+n, the flat probe of `repro_torch.mips.FlatAbsIndex`. CUDA tensors run
-the kernel of ``csrc/mips_topk.cu``; CPU tensors run `ref.mips_topk_ref`.
+the kernel of ``csrc/mips_topk.cu`` (its route by shape: `plan`); CPU
+tensors run `ref.mips_topk_ref`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,18 +18,39 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mips_topk.ref import mips_topk_ref
 
 MODES = {"plain": 0, "abs": 1, "aug": 2}
+ROUTES = ("split", "narrow", "rows")
 MAX_K = 8192
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mips_topk")
-    lib.mips_topk_scratch_len.argtypes = [_I, _I, _I]
-    lib.mips_topk_scratch_len.restype = _L
-    lib.mips_topk_launch.argtypes = [_P, _P, _I, _I, _I, _I, _P, _L, _P, _P, _P]
+    lib.mips_topk_plan.argtypes = [_I, _I, _I, _I, _P]
+    lib.mips_topk_plan.restype = _I
+    lib.topk_workspace_len.argtypes = [_L]
+    lib.topk_workspace_len.restype = _L
+    lib.mips_topk_launch.argtypes = [_P, _P, _I, _I, _I, _I, _P, _L, _P, _L,
+                                     _P, _P, _P]
     lib.mips_topk_launch.restype = _I
     return lib
+
+
+def plan(n: int, d: int, k: int, mode: str = "plain") -> dict:
+    """The kernel's launch plan on the current card: route (``split``,
+    ``narrow`` or ``rows``), splits of d, scoring and filter blocks, scratch
+    words."""
+    return dict(_plan(n, d, k, mode, torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(n, d, k, mode, device_index) -> tuple:
+    out = (ctypes.c_longlong * 5)()
+    if _lib().mips_topk_plan(n, d, k, MODES[mode], out) != 0:
+        raise RuntimeError("mips_topk: cannot query the device's SM count")
+    return (("route", ROUTES[out[0]]), ("splits", out[1]), ("blocks", out[2]),
+            ("filter_blocks", out[3]), ("scratch", out[4]))
 
 
 def mips_topk(V: torch.Tensor, q: torch.Tensor, k: int, mode: str = "plain"):
@@ -48,12 +71,14 @@ def mips_topk(V: torch.Tensor, q: torch.Tensor, k: int, mode: str = "plain"):
     if n_cand >= 2**31:
         raise ValueError(f"{n_cand} candidates overflow the kernel's int32 ids")
     lib = _lib()
-    scratch = torch.empty(lib.mips_topk_scratch_len(n, k, MODES[mode]),
-                          dtype=torch.int64, device=dev)
+    scratch = torch.empty(plan(n, d, k, mode)["scratch"], dtype=torch.int64,
+                          device=dev)
+    ws = _build.workspace(dev, lib.topk_workspace_len(1))
     ids = torch.empty(k, dtype=torch.int32, device=dev)
     scores = torch.empty(k, dtype=torch.float32, device=dev)
     err = lib.mips_topk_launch(V.data_ptr(), q.data_ptr(), n, d, k, MODES[mode],
                                scratch.data_ptr(), scratch.numel(),
+                               ws.data_ptr(), ws.numel(),
                                ids.data_ptr(), scores.data_ptr(),
                                _build.stream_ptr(dev))
     _build.check(lib, err, "mips_topk")

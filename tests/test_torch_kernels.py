@@ -17,13 +17,16 @@ import pytest
 import torch
 
 from repro.core.workload import DenseWorkload as RefDenseWorkload
-from repro.kernels.ivf_probe.ref import ivf_probe_topk_ref
+from repro.kernels.ivf_probe.ref import (ivf_probe_topk_batch_ref,
+                                        ivf_probe_topk_ref)
 from repro.kernels.mips_topk.ops import mips_abs_topk
 from repro.kernels.mips_topk.ref import mips_topk_ref as ref_mips_topk
 from repro.kernels.mwem_step.ref import mwem_step_ref as ref_mwem_step
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ivf_probe import (ivf_probe_stream,
+from repro_torch.kernels.ivf_probe import (batch_probe_slots, ivf_probe_stream,
+                                           ivf_probe_stream_batch,
+                                           ivf_probe_stream_batch_ref,
                                            ivf_probe_stream_ref, ivf_probe_topk)
 from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
 from repro_torch.kernels.mwem_step import (UPDATE_RULES, gather_score,
@@ -125,6 +128,79 @@ class TestMipsTopkRef:
             mips_topk(V.to("meta"), q.to("meta"), 3)
 
 
+def _edge_rows(case, n, d, rng):
+    """(V, q) of one K1 edge case: ``random``, ``equal`` (all rows alike,
+    integer-valued), ``zeros`` (rows of +0.0 and −0.0 among positive
+    integer rows; q > 0) or ``d21`` (random rows of the LP's width)."""
+    if case == "d21":
+        d = 21
+    V = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal(d).astype(np.float32)
+    if case == "equal":
+        V = np.tile(rng.integers(-3, 4, size=d), (n, 1)).astype(np.float32)
+        q = rng.integers(1, 4, size=d).astype(np.float32)
+    elif case == "zeros":
+        V = np.zeros((n, d), np.float32)
+        V[1::3] = -0.0
+        V[2::3] = rng.integers(1, 4, size=(len(range(2, n, 3)), d))
+        q = rng.integers(1, 4, size=d).astype(np.float32)
+    return V, q
+
+
+def _assert_same_up_to_zero_sign(i_m, s_m, i_r, s_r):
+    """Scores equal; ids equal where the score is not 0; the ids that score
+    ±0 are the same set, and the port's come in ascending id (it folds −0
+    onto +0 and ranks the tie by id; `jax.lax.top_k` puts +0 first)."""
+    s_m, s_r = np.asarray(s_m), np.asarray(s_r)
+    np.testing.assert_array_equal(s_m, s_r)
+    zero = s_m == 0
+    np.testing.assert_array_equal(np.asarray(i_m)[~zero], np.asarray(i_r)[~zero])
+    assert set(np.asarray(i_m)[zero]) == set(np.asarray(i_r)[zero])
+    assert list(np.asarray(i_m)[zero]) == sorted(np.asarray(i_m)[zero])
+
+
+class TestMipsTopkEdgeCases:
+    """The plain version against `repro` at the edge cases the select of
+    the CUDA kernel must also meet: all-equal rows (ties decide every
+    place), ±0 scores, k = n and the LP's width d = 21."""
+
+    @pytest.mark.parametrize("case", ["random", "equal", "zeros", "d21"])
+    @pytest.mark.parametrize("k_of_n", ["one", "half", "all"])
+    def test_plain_and_abs_match_reference(self, case, k_of_n):
+        rng = np.random.default_rng(11)
+        V, q = _edge_rows(case, 60, 12, rng)
+        n = V.shape[0]
+        k = {"one": 1, "half": n // 2, "all": n}[k_of_n]
+        s = jnp.asarray(V) @ jnp.asarray(q)
+        for mode, score in (("plain", s), ("abs", jnp.abs(s))):
+            top_s, top_i = jax.lax.top_k(score, k)
+            i_m, s_m = mips_topk_ref(_t(V), _t(q), k, mode)
+            if case == "zeros":
+                if k_of_n == "half":  # cut inside the ±0 group: compare all
+                    i_m, s_m = mips_topk_ref(_t(V), _t(q), n, mode)
+                    top_s, top_i = jax.lax.top_k(score, n)
+                _assert_same_up_to_zero_sign(i_m.numpy(), s_m.numpy(), top_i, top_s)
+            else:
+                np.testing.assert_array_equal(i_m.numpy(), np.asarray(top_i))
+                np.testing.assert_allclose(s_m.numpy(), np.asarray(top_s), RTOL, ATOL)
+
+    @pytest.mark.parametrize("case", ["random", "equal", "zeros", "d21"])
+    def test_aug_matches_reference_kernel(self, case):
+        """All 2n candidates against the reference's Pallas kernel in
+        interpret mode: the same scores and, per score, the same ids (its
+        order among exact ties depends on its tile size)."""
+        rng = np.random.default_rng(12)
+        V, q = _edge_rows(case, 24, 8, rng)
+        n = V.shape[0]
+        i_r, s_r = mips_abs_topk(jnp.asarray(V), jnp.asarray(q), 2 * n,
+                                 block_n=8, block_d=8)
+        i_m, s_m = mips_topk_ref(_t(V), _t(q), 2 * n, "aug")
+        np.testing.assert_allclose(s_m.numpy(), np.asarray(s_r), RTOL, ATOL)
+        for val in np.unique(s_m.numpy()):
+            at = np.isclose(s_m.numpy(), val, rtol=RTOL, atol=ATOL)
+            assert set(i_m.numpy()[at]) == set(np.asarray(i_r)[at])
+
+
 # ---------------------------------------------------------------- K4 ivf_probe
 
 def _ivf_structure(n, dim, nlist, cap, seed, integer=False, fill=1.0):
@@ -195,6 +271,161 @@ class TestIVFProbeRef:
                                                 torch.ones(4), 16)
         assert ids.shape == (16,) and int(n_valid) == 10
         assert (ids[10:] == -1).all() and torch.isneginf(scores[10:]).all()
+
+
+class TestWaveProbeEdgeCases:
+    """K5's plain version against `repro`'s batch reference at the edge
+    cases its kernel's select must also meet: all-equal rows, ±0 scores,
+    k = every candidate slot of the wave (the tail −1 / −inf) and the LP's
+    width d = 21."""
+
+    @pytest.mark.parametrize("case", ["equal", "zeros", "all", "d21"])
+    @pytest.mark.parametrize("lanes", [1, 3])
+    def test_matches_reference(self, case, lanes):
+        d = 21 if case == "d21" else 8
+        V, cents, cells, cell_rows = _ivf_structure(
+            150, d, 10, 20, seed=lanes, integer=case in ("equal", "zeros"),
+            fill=0.75)
+        rng = np.random.default_rng(lanes + 20)
+        Vb = rng.standard_normal((lanes, d)).astype(np.float32)
+        if case == "equal":
+            V[:] = V[0]
+        elif case == "zeros":
+            V[::3] = -0.0
+            V[1::3] = 0.0
+            V[2::3] = np.abs(V[2::3]) + 1
+            Vb = np.abs(np.round(Vb)) + 1
+        cell_rows = V[np.clip(cells, 0, None)] * (cells >= 0)[..., None]
+        nprobe = 3
+        k = nprobe * lanes * cells.shape[1] if case == "all" else 12
+        i_r, s_r, n_r = ivf_probe_topk_batch_ref(
+            *map(jnp.asarray, (cents, cells, V, Vb)), k, nprobe)
+        slots, member, _ = batch_probe_slots(_t(cents), _t(Vb), nprobe)
+        i_m, s_m, n_m = ivf_probe_stream_batch_ref(slots, member, _t(cell_rows),
+                                                   _t(cells), _t(Vb), k)
+        np.testing.assert_array_equal(n_m.numpy(), np.asarray(n_r))
+        for b in range(lanes):
+            if case == "zeros":
+                _assert_same_up_to_zero_sign(i_m[b].numpy(), s_m[b].numpy(),
+                                             np.asarray(i_r[b]), np.asarray(s_r[b]))
+            else:
+                np.testing.assert_array_equal(i_m[b].numpy(), np.asarray(i_r[b]))
+                np.testing.assert_allclose(s_m[b].numpy(), np.asarray(s_r[b]),
+                                           RTOL, ATOL)
+        if case == "all":
+            assert (i_m == -1).any() and bool(torch.isneginf(s_m[i_m == -1]).all())
+
+
+class TestWrapperArguments:
+    """What the wrappers refuse before any device work, on any device."""
+
+    @pytest.mark.parametrize("k,mode", [(0, "plain"), (11, "plain"),
+                                        (21, "aug"), (9000, "aug"),
+                                        (3, "signed")])
+    def test_mips_topk_rejects(self, k, mode):
+        V, q = torch.zeros(10, 4), torch.zeros(4)
+        with pytest.raises(ValueError):
+            mips_topk(V, q, k, mode)
+
+    def test_mips_topk_rejects_mixed_devices(self):
+        with pytest.raises(ValueError, match="several devices"):
+            mips_topk(torch.zeros(10, 4), torch.zeros(4, device="meta"), 3)
+
+    @pytest.mark.parametrize("k", [0, 8193])
+    def test_ivf_probes_reject_k(self, k):
+        _, cents, cells, cell_rows = _ivf_structure(60, 4, 6, 10, 0)
+        Vb = torch.ones(2, 4)
+        slots, member, _ = batch_probe_slots(_t(cents), Vb, 2)
+        with pytest.raises(ValueError, match="k="):
+            ivf_probe_stream(torch.tensor([0, 1], dtype=torch.int32),
+                             _t(cell_rows), _t(cells), Vb[0], k)
+        with pytest.raises(ValueError, match="k="):
+            ivf_probe_stream_batch(slots, member, _t(cell_rows), _t(cells), Vb, k)
+
+    def test_ivf_probe_batch_rejects_mixed_devices(self):
+        _, cents, cells, cell_rows = _ivf_structure(60, 4, 6, 10, 0)
+        Vb = torch.ones(2, 4)
+        slots, member, _ = batch_probe_slots(_t(cents), Vb, 2)
+        with pytest.raises(ValueError, match="several devices"):
+            ivf_probe_stream_batch(slots, member, _t(cell_rows), _t(cells),
+                                   Vb.to("meta"), 4)
+
+
+# ----------------------------------------- the CUDA select, emulated on numpy
+
+def _keys(scores, ties):
+    """`rt::make_key` of common.cuh on numpy: order-preserving score bits
+    (−0 folded onto +0) over 0xFFFFFFFF − tie."""
+    x = np.where(scores == 0, np.float32(0), scores).astype(np.float32)
+    u = x.view(np.uint32)
+    o = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return ((o.astype(np.uint64) << np.uint64(32))
+            | (np.uint64(0xFFFFFFFF) - ties.astype(np.uint64)))
+
+
+def _block_select(keys, k):
+    """`sel::block_select` of topk_select.cuh: 8-bit digits from the top,
+    a histogram of the keys matching the prefix, stop when the bucket of
+    the need-th largest is taken whole."""
+    if len(keys) <= k:
+        return keys
+    prefix = mask = np.uint64(0)
+    need = k
+    for shift in range(56, -1, -8):
+        digits = (keys[(keys & mask) == prefix] >> np.uint64(shift)) & np.uint64(255)
+        hist = np.bincount(digits.astype(np.int64), minlength=256)
+        run = 0
+        for digit in range(255, -1, -1):
+            if run + hist[digit] >= need:
+                break
+            run += hist[digit]
+        need -= run
+        prefix |= np.uint64(digit) << np.uint64(shift)
+        mask |= np.uint64(255) << np.uint64(shift)
+        if hist[digit] == need or shift == 0:
+            break
+    return keys[(keys & mask) >= prefix]
+
+
+def _top_digit_filter(keys, k):
+    """`sel::topk_filter_kernel`: keep the keys whose top 12 bits are at or
+    above the bucket of the k-th largest (all of them if there are <= k)."""
+    top = (keys >> np.uint64(52)).astype(np.int64)
+    from_top = np.cumsum(np.bincount(top, minlength=4096)[::-1])
+    digit = 4095 - int(np.argmax(from_top >= k)) if from_top[-1] >= k else 0
+    return keys[top >= digit]
+
+
+class TestSelectEmulation:
+    """The radix select of ``csrc/topk_select.cuh`` (its CUDA runs only on
+    the card, where `chip_smoke.py` holds it to the plain versions) replayed
+    on numpy: filter then select keeps exactly the top k keys of a stable
+    descending sort, on spread, clustered, tied, ±0 and ±inf scores."""
+
+    @pytest.mark.parametrize("case", ["normal", "clustered", "equal", "zeros",
+                                      "inf", "integer", "tiny"])
+    @pytest.mark.parametrize("k", [1, 37, 512, 5000])
+    def test_keeps_the_stable_top_k(self, case, k):
+        rng = np.random.default_rng(k)
+        n = 3 if case == "tiny" else 4000
+        s = rng.standard_normal(n).astype(np.float32)
+        if case == "clustered":
+            s = (1.0 + 1e-6 * s).astype(np.float32)
+        elif case == "equal":
+            s[:] = 2.5
+        elif case == "zeros":
+            s[::3], s[1::3] = 0.0, -0.0
+        elif case == "inf":
+            s[::5], s[2::5] = np.inf, -np.inf
+        elif case == "integer":
+            s = rng.integers(-3, 4, n).astype(np.float32)
+        keys = _keys(s, np.arange(n))
+        kept = _block_select(_top_digit_filter(keys, k), k)
+        assert len(kept) == min(k, n)
+        order = np.sort(kept)[::-1]
+        ids = (np.uint64(0xFFFFFFFF) - (order & np.uint64(0xFFFFFFFF))).astype(np.int64)
+        want = torch.sort(torch.as_tensor(s), descending=True, stable=True)
+        np.testing.assert_array_equal(ids, want.indices[:k].numpy())
 
 
 # ------------------------------------------------------- K2 mwem_step, K3
