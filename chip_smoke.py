@@ -37,27 +37,33 @@
    (one histogram a lane, reusing the IVF index above), and profiles 51
    iterations of the IVF wave as in step 5.
 7. Factored k-way marginal workloads: holds K6 (`marginal_gather_score`)
-   to its plain version at edge shapes (cliques of 1 to 4 attributes with
-   padded arities, heterogeneous cards, a domain that is no multiple of the
-   block, one candidate, no active slot, − signs, U = 2**15 and 2**16) and
-   K2's multi-block route (U = 16385, 32768, 65536, 100000; all three
-   rules; one lane and an 8-lane grid with shared and per-lane h; two
-   launches must agree bit for bit); checks a small factored release, card
-   against CPU on numpy draws, in exact, flat and marginal-IVF mode; then
+   to its plain version at edge shapes (cliques of 1 to 6 attributes with
+   padded arities, heterogeneous cards, cliques listed in descending
+   attribute order and over all attributes, a domain that is no multiple
+   of the block, one candidate, no active slot, − signs, U = 2**15 with
+   every slot of the main path's tail active, and U = 2**16) and K2 past
+   U = 16384 (U = 16385 and 32768 on one cluster launch, 32769, 65536,
+   100000, 131072 and 131073 on three launches; all three rules; one lane and an
+   8-lane wave with shared and per-lane h; two launches must agree bit for
+   bit, lane b must equal the single-lane launch on lane b); checks a small
+   factored release, card against CPU on numpy draws, in exact, flat and
+   marginal-IVF mode; then
    runs the factored main path — all 4-way marginals over ``--attrs`` = 15
    binary attributes (U = 2**15, m = 21840, no dense table:
    `benchmarks/bench_marginals.py:75-79`), n = 100000 records drawn as
    multinomial counts under ``softmax(2·N(0,1))`` logits, T = 500 — in
    exact, fast/flat and fast/marginal-IVF mode (each below the uniform
-   baseline, each ledger equal to its preview, K6 and the multi-block K2
-   launched in both fast modes), the adaptive worst-marginal loop (T = 30)
-   on the same workload, and profiles 51 iterations of each factored mode
-   as in step 5 (the window keyed on the multi-block K2's last pass).
+   baseline, each ledger equal to its preview, K6 and K2's cluster route
+   launched in both fast modes, every K2 step on one cluster launch), the
+   adaptive worst-marginal loop (T = 30) on the same workload, and profiles
+   51 iterations of each factored mode as in step 5.
 8. Holds every kernel against its plain version again at the shapes the
    main paths gave it — K1 in `aug` mode over Q (the flat probe) and in
    `plain` mode over the IVF centroids (the IVF probe's first step), K5,
-   K2 and K3 at the wave's shapes, K6 and the multi-block K2 at the
-   factored path's — and times each with CUDA events.
+   K2 and K3 at the wave's shapes, K6 and K2's cluster route at the
+   factored path's, K2's three launches at U = 2**18 (`timing_only`) — and
+   times each with CUDA events (K1, K2, K4, K5 and K6 also over 200
+   back-to-back replays).
 
 9. The LM serving tier (`repro_torch.models.LM` under
    `repro_torch.serve.engine.ServeEngine`): holds K8 (flash attention) and
@@ -131,15 +137,17 @@ LLAMA_PROMPTS, MAMBA_PROMPTS = (256, 2048), (256, 1024)  # prompt lengths
 LANES = 8  # the serving tier's wave, src/repro/serve/release_service.py:218
 KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score",
            "ivf_probe_batch", "mwem_step_batch", "gather_score_batch",
-           "marginal_gather_score", "mwem_step:multiblock",
+           "marginal_gather_score", "mwem_step:cluster",
            "flash_attention", "flash_attention:decode", "ssd_scan",
            "mwu_update", "mwu_update:wave", "mwu_update:dual", "mips_topk:lp",
            "ivf_probe:lp", "gather_score_batch:lp", "mips_topk:dual",
            "gather_score:dual")
 # Timed and checked like a kernel of the list, but no main path runs them
-# (a factored wave is not ported; no path updates a row of 2**20 weights
-# with K7): their lines are logged, not in the result.
-TIMING_ONLY = ("mwem_step_batch:multiblock", "mwu_update:2^20")
+# (a factored wave is not ported; no path has U past K2's cluster reach, so
+# none runs its three launches; no path updates a row of 2**20 weights with
+# K7): their lines are logged, not in the result.
+TIMING_ONLY = ("mwem_step_batch:cluster", "mwem_step:multiblock",
+               "mwu_update:2^20")
 REPLACES = {
     "mips_topk": "src/repro/kernels/mips_topk/mips_topk.py:97",
     "ivf_probe": "src/repro/kernels/ivf_probe/ivf_probe.py:120",
@@ -149,8 +157,9 @@ REPLACES = {
     "mwem_step_batch": "src/repro/kernels/mwem_step/mwem_step.py:103",
     "gather_score_batch": "src/repro/kernels/mwem_step/mwem_step.py:139",
     "marginal_gather_score": "src/repro/kernels/mwem_step/mwem_step.py:189",
+    "mwem_step:cluster": "src/repro/kernels/mwem_step/mwem_step.py:103",
+    "mwem_step_batch:cluster": "src/repro/kernels/mwem_step/mwem_step.py:103",
     "mwem_step:multiblock": "src/repro/kernels/mwem_step/mwem_step.py:103",
-    "mwem_step_batch:multiblock": "src/repro/kernels/mwem_step/mwem_step.py:103",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:112",
     "flash_attention:decode":
         "src/repro/kernels/flash_attention/flash_attention.py:112",
@@ -166,8 +175,9 @@ SOURCES = {
     "mwem_step_batch": "src/repro_torch/csrc/mwem_step.cu",
     "gather_score_batch": "src/repro_torch/csrc/mwem_step.cu",
     "marginal_gather_score": "src/repro_torch/csrc/mwem_step.cu",
+    "mwem_step:cluster": "src/repro_torch/csrc/mwem_step.cu",
+    "mwem_step_batch:cluster": "src/repro_torch/csrc/mwem_step.cu",
     "mwem_step:multiblock": "src/repro_torch/csrc/mwem_step.cu",
-    "mwem_step_batch:multiblock": "src/repro_torch/csrc/mwem_step.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "flash_attention:decode": "src/repro_torch/csrc/flash_attention.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
@@ -363,8 +373,9 @@ def reset_counts(ops) -> None:
 
 def read_counts(ops) -> dict:
     """Each kernel's launches since `reset_counts`; a route a wrapper
-    counts apart (``launches_<route>``: K2's multi-block route, K8's
-    decode route) under its own row name ``<kernel>:<route>``."""
+    counts apart (``launches_<route>``: K2's calls past U = 16384 and those
+    of them on one cluster launch, K8's decode route) under its own row
+    name ``<kernel>:<route>``."""
     counts = {}
     for name, fn in ops.items():
         counts[name] = fn.launches
@@ -374,13 +385,13 @@ def read_counts(ops) -> dict:
     return counts
 
 
-def profile_window(run, step_kernel: str = "mwem_step_kernel") -> tuple:
+def profile_window(run, step_kernel: str = "mwem_step_cluster_kernel") -> tuple:
     """``run()``'s result and the device busy share of its iterations
     after the first (T of them, 51 here, give a window of 50), from one
     `torch.profiler` trace: the window runs from the end of iteration 0's
-    last K2 kernel (``step_kernel``: the one-block `mwem_step_kernel`, or
-    the multi-block route's last pass) to the end of the last one, so
-    set-up and the final error evaluation lie outside it."""
+    last K2 kernel (``step_kernel``: K2's one cluster launch, or K7 for
+    the LP) to the end of the last one, so set-up and the final error
+    evaluation lie outside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1584,7 +1595,8 @@ def main() -> int:
                                                ivf_probe_stream_ref)
     from repro_torch.kernels.ivf_probe.ops import wave_plan
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
-    from repro_torch.kernels.mwem_step import (MAX_U, gather_score,
+    from repro_torch.kernels.mwem_step import (CLUSTER_U, MAX_U,
+                                               gather_score,
                                                gather_score_batch,
                                                gather_score_batch_ref,
                                                gather_score_ref,
@@ -1592,7 +1604,7 @@ def main() -> int:
                                                marginal_gather_score_ref,
                                                mwem_step, mwem_step_batch,
                                                mwem_step_batch_ref,
-                                               mwem_step_ref)
+                                               mwem_step_ref, plan)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mwu_update import mwu_update
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1844,7 +1856,7 @@ def main() -> int:
     wide_ivf_waves(dev, args.seed, Qs_np, hs_np, expect, ops)
     log(f"IVF waves of 17 and 24 lanes: {'ok' if not failures else 'FAILED'}")
 
-    # ------------------- factored kernels at edge shapes: K6, multi-block K2
+    # ------------------- factored kernels at edge shapes: K6, K2 past 16384
     def k6_case(card, cliques, C, signs="both", active_frac=None):
         """K6 against its plain version; the tolerance is `f32_tol` on each
         candidate's Σ|v| over its row."""
@@ -1877,11 +1889,16 @@ def main() -> int:
     k6_case(hetero, [(0, 1), (1, 2, 3)], 50, signs="minus")
     k6_case((4, 3, 5, 6, 7, 3), [(0, 5), (1, 2, 4), (3,), (0, 1, 2, 3)], 200,
             active_frac=0.3)                                 # U = 7560
+    k6_case(hetero, [(3, 1, 0), (2, 0), (3, 2, 1, 0)], 80)  # descending order
+    k6_case((4, 3, 5, 6, 7, 3), [(5, 4, 3, 2, 1, 0), (2, 5)], 60)  # all attributes
+    k6_case((2, 1, 3, 1, 4), [(1, 3), (0, 1, 4), (3, 2)], 30)  # cards of 1
     k6_case((2,) * 15, list(itertools.combinations(range(15), 4))[:300], 836,
             active_frac=0.25)                                # U = 2**15
+    k6_case((2,) * 15, list(itertools.combinations(range(15), 4)), 836)  # main, all active
     k6_case((2,) * 16, list(itertools.combinations(range(16), 4))[::9], 300,
             active_frac=0.5)                                 # U = 2**16
-    for u in (MAX_U + 1, 32768, 65536, 100_000):
+    for u in (MAX_U + 1, CLUSTER_U, CLUSTER_U + 1, 65536, 100_000, 131072,
+              131073):
         Qs = (torch.rand(9, u, generator=g, device=dev) < 0.3).float()
         lw = randn(LANES, u)
         lw = lw - lw.amax(1, keepdim=True)
@@ -1901,8 +1918,10 @@ def main() -> int:
             ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-7)
                      for a, b in zip(got, want))
             ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+            # both calls past U = 16384; one cluster launch each up to its reach
             ok = ok and mwem_step.launches_multiblock == 2
-            expect(ok, f"mwem_step multi-block u={u} {rule}")
+            ok = ok and mwem_step.launches_cluster == (2 if u <= CLUSTER_U else 0)
+            expect(ok, f"mwem_step u={u} {rule} ({plan(u, 1)})")
             for hh in (hb[0], hb):
                 got = mwem_step_batch(lw, p, ps, Qs, sel, hh, noise, rule=rule,
                                       eta=0.3)
@@ -1917,7 +1936,7 @@ def main() -> int:
                     ok = ok and all(torch.equal(a[b], c) for a, c in zip(got, one))
                 ok = ok and bool(torch.allclose(got[1].sum(1), torch.ones(
                     LANES, device=dev), atol=1e-5))
-                expect(ok, f"mwem_step_batch multi-block u={u} {rule} "
+                expect(ok, f"mwem_step_batch u={u} {rule} "
                        f"h{tuple(hh.shape)}")
     torch.cuda.synchronize()
     log(f"factored edge shapes: {'ok' if not failures else 'FAILED'}")
@@ -2093,11 +2112,11 @@ def main() -> int:
         "dense_nbytes_avoided": Wm.dense_nbytes, "factored_nbytes": Wm.nbytes,
         "nprobe": mivf.nprobe, "uniform_error": uniform_m,
         "setup_s": time.perf_counter() - t0}}))
-    expected_f = {"exact": {"mwem_step", "mwem_step:multiblock"},
+    expected_f = {"exact": {"mwem_step", "mwem_step:cluster"},
                   "flat": {"marginal_gather_score", "mwem_step",
-                           "mwem_step:multiblock"},
+                           "mwem_step:cluster"},
                   "mivf": {"marginal_gather_score", "mwem_step",
-                           "mwem_step:multiblock"}}
+                           "mwem_step:cluster"}}
     fruns, fcounts = {}, {}
     for kind, index in (("exact", None), ("flat", FlatAbsIndex(Wm, device=dev)),
                         ("mivf", mivf)):
@@ -2136,6 +2155,10 @@ def main() -> int:
         for name in expected_f[kind]:
             expect(counts[name] > 0,
                    f"factored {kind}: kernel {name} never launched")
+        expect(counts["mwem_step:cluster"] == counts["mwem_step:multiblock"]
+               == counts["mwem_step"],
+               f"factored {kind}: a K2 step at U={Wm.U} took more than one "
+               f"cluster launch: {counts}")
 
     # the adaptive worst-marginal loop on the same workload
     cfg_a = AdaptiveConfig(eps=1.0, delta=1e-3, T=30, n_records=n_rec)
@@ -2162,7 +2185,7 @@ def main() -> int:
                          mode="exact" if kind == "exact" else "fast")
         res, prof = profile_window(
             lambda: run_mwem(Wm, h_m, cfg, TorchDraws.seeded(args.seed + 7, dev),
-                             index=index), step_kernel="mwem_step_norm_kernel")
+                             index=index))
         log(json.dumps({"profile": f"factored {kind}", **prof, "event_iter_ms":
                         1e3 * float(np.mean(res.iter_seconds[1:]))}))
 
@@ -2203,7 +2226,7 @@ def main() -> int:
          f32_tol(U, float((ivf._cell_rows[probe.long()].abs() @ v.abs()).max())),
          4.0 * n_valid * U + 4 * ivf.nprobe * (ivf._cells8.shape[1] + 1)
          + 4 * U + 8 * k, 2.0 * n_valid * U),
-        ("mwem_step", "mwem_step", None,  # the one-block route's launches
+        ("mwem_step", "mwem_step", "cluster:%d" % plan(U, 1)[1],  # U <= 16384
          launches["mwem_step"] - launches["mwem_step:multiblock"],
          lambda: mwem_step(lw0, p, ps0, Q, sel, h, noise, rule="hardt",
                            eta=math.sqrt(math.log(U) / T)),
@@ -2264,7 +2287,7 @@ def main() -> int:
          4.0 * rows_read * U + 4 * LANES * U + 4 * n_unique * cap8
          + 4 * slots.numel() * (1 + LANES) + 8 * LANES * k + 4 * LANES,
          2.0 * pairs * U),
-        ("mwem_step_batch", "mwem_step_batch", None,
+        ("mwem_step_batch", "mwem_step_batch", "cluster:%d" % plan(U, LANES)[1],
          launches["mwem_step_batch"] - launches["mwem_step_batch:multiblock"],
          lambda: mwem_step_batch(lw_b, p_b, ps_b, Q, sel_b, hb_main, noise_b,
                                  rule="hardt", eta=eta),
@@ -2279,9 +2302,13 @@ def main() -> int:
          4.0 * n_act_b * U + 4 * LANES * U + 13 * LANES * tail_cap,
          2.0 * n_act_b * U),
     ]
-    # K6 and the multi-block K2 at the factored path's shapes: the probe of
+    # K6 and K2's cluster route at the factored path's shapes: the probe of
     # the marginal-IVF release, a tail of tail_cap slots with as many
-    # active as that run's mean tail, the winner row as a (1, U) table.
+    # active as that run's mean tail, the winner row as a (1, U) table. K6
+    # needs the points of v its active candidates' cells cover (the union,
+    # each once), an active slot's id, its query's clique and offset and
+    # the clique's (stride, card, cell stride) a column, every slot's flag
+    # and score, and one add a point of each cell.
     vf = h_m - fruns["mivf"].p_hat
     k_f = math.ceil(math.sqrt(Wm.m))
     cap_f = 4 * math.ceil(math.sqrt(2 * Wm.m))
@@ -2304,27 +2331,46 @@ def main() -> int:
     ps_fb = ps_f.expand(LANES, -1).contiguous()
     noise_fb = torch.full((LANES,), 1e-3, device=dev)
     n_fast = sum(fcounts[kind]["marginal_gather_score"] for kind in ("flat", "mivf"))
+    cells_f = Wm.rows(aug_f[act_f] % Wm.m)  # (n_act_f, U) indicators
+    v_points_f = int(cells_f.amax(0).sum())
+    adds_f = float(cells_f.sum())
+    del cells_f
+    # K2's three launches past the cluster's reach: one lane at U = 2**18
+    u3 = 2 ** 18
+    q3 = (torch.rand(2, u3, generator=rows_gen, device=dev) < 0.3).float()
+    lw3 = torch.zeros(u3, device=dev)
+    p3 = torch.full((u3,), 1.0 / u3, device=dev)
+    ps3 = torch.rand(u3, generator=rows_gen, device=dev)
+    h3 = torch.softmax(torch.randn(u3, generator=rows_gen, device=dev), 0)
+    id3 = torch.tensor(1, device=dev)
     cases += [
         ("marginal_gather_score", "marginal_gather_score", None, n_fast,
          lambda: marginal_gather_score(Wm, vf, aug_f, act_f),
          lambda: marginal_gather_score_ref(Wm, vf, aug_f, act_f),
          f32_tol(Wm.U, mag_f),
-         4.0 * Wm.U + 13 * cap_f + 4 * 3 * Wm.kmax * n_act_f + 8 * n_act_f,
-         1.0 * n_act_f * Wm.U),
-        ("mwem_step:multiblock", "mwem_step:multiblock", None,
-         launches["mwem_step:multiblock"],
+         4.0 * v_points_f + 8 * n_act_f + cap_f + 4 * cap_f
+         + 4 * 3 * Wm.kmax * n_act_f + 8 * n_act_f, adds_f),
+        ("mwem_step:cluster", "mwem_step:cluster", "cluster:%d" % plan(Wm.U, 1)[1],
+         launches["mwem_step:cluster"],
          lambda: mwem_step(lw_f, p_f, ps_f, row_f, id_f, h_m, noise,
                            rule="hardt", eta=eta_f),
          lambda: mwem_step_ref(lw_f, p_f, ps_f, row_f, id_f, h_m, noise,
                                rule="hardt", eta=eta_f),
          None, 4.0 * 8 * Wm.U + 16, 12.0 * Wm.U),
-        ("mwem_step_batch:multiblock", "mwem_step_batch:multiblock", None,
-         launches["mwem_step_batch:multiblock"],
+        ("mwem_step_batch:cluster", "mwem_step_batch:cluster",
+         "cluster:%d" % plan(Wm.U, LANES)[1], launches["mwem_step_batch:cluster"],
          lambda: mwem_step_batch(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_m,
                                  noise_fb, rule="hardt", eta=eta_f),
          lambda: mwem_step_batch_ref(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_m,
                                      noise_fb, rule="hardt", eta=eta_f),
          None, LANES * (4.0 * 7 * Wm.U + 12) + 4.0 * Wm.U, LANES * 12.0 * Wm.U),
+        ("mwem_step:multiblock", "mwem_step:multiblock", plan(u3, 1)[0],
+         launches["mwem_step:multiblock"] - launches["mwem_step:cluster"],
+         lambda: mwem_step(lw3, p3, ps3, q3, id3, h3, noise, rule="hardt",
+                           eta=eta_f),
+         lambda: mwem_step_ref(lw3, p3, ps3, q3, id3, h3, noise, rule="hardt",
+                               eta=eta_f),
+         None, 4.0 * 8 * u3 + 16, 12.0 * u3),
     ]
     # One PyTorch composition that computes K1's function, timed beside it
     # as its yardstick (the port never calls it). K5 has none: it is a
@@ -2367,17 +2413,26 @@ def main() -> int:
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         if lib:
             out["library"] = lib[1]
-        if name in ("mips_topk", "ivf_probe", "ivf_probe_batch"):
+        if name in ("mips_topk", "ivf_probe", "ivf_probe_batch",
+                    "marginal_gather_score") or name.startswith("mwem_step"):
             out["replayed_ms"] = {"kernel": replayed_ms(kern),
                                   "plain": replayed_ms(plain),
                                   "library": replayed_ms(lib[0]) if lib else None}
+        if name.startswith("mwem_step"):  # the kernels one call launches
+            stages = stage_ms(kern)
+            log(json.dumps({"stages_ms": row, **stages}))
+            want_k = ({"mwem_step_cluster_kernel"} if mode.startswith("cluster")
+                      else {"mwem_step_dots_kernel", "mwem_step_update_kernel",
+                            "mwem_step_norm_kernel"})
+            expect(set(stages) == want_k,
+                   f"{row}: one call launched {sorted(stages)}, not {sorted(want_k)}")
         if mode:
             out["mode"] = mode
         if row in TIMING_ONLY:
             log(json.dumps({"timing_only": out}))
         else:
             rows_out.append(out)
-        if row in ("mips_topk", "ivf_probe_batch"):
+        if row in ("mips_topk", "ivf_probe_batch", "marginal_gather_score"):
             log(json.dumps({"stages_ms": row, **stage_ms(kern)}))
         log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "

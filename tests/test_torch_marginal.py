@@ -3,7 +3,7 @@ same inputs: the `MarginalWorkload` primitives, the K6 tail scorer's plain
 version (against the reference's Pallas kernel in interpret mode), the
 clique-structured probe and both factored indices, whole `run_mwem` runs
 in exact, flat and marginal-IVF mode, the adaptive worst-marginal loop,
-and K2's plain path past the one-block route (U > 16384).
+and K2's plain path at the factored domains' U (U > 16384).
 
 The workload is heterogeneous on purpose: cards (3, 2, 4, 2) and cliques of
 arity 1, 2 and 3, so pad columns (card 1, cell stride 0) and pad cells
@@ -425,13 +425,13 @@ def test_entry_points_need_a_device(pair, hist):
             build()
 
 
-# ------------------------------------------- K2 past the one-block route
+# ----------------------------------------------------- K2 past U = 16384
 
 @pytest.mark.parametrize("U", [MAX_U + 1, 32768])
 @pytest.mark.parametrize("rule", ["paper", "signed", "hardt"])
 def test_large_u_step_matches_reference(U, rule):
-    """`mwem_step` and `mwem_step_batch` at U > 16384 (the multi-block
-    route on the card) take their plain path on the CPU, held to the
+    """`mwem_step` and `mwem_step_batch` at U > 16384 (one cluster
+    launch on the card) take their plain path on the CPU, held to the
     reference's `mwem_step_ref`, one lane and a 3-lane grid with shared
     and per-lane h."""
     rng = np.random.default_rng(U % 97)
