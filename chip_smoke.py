@@ -8,7 +8,10 @@
    per source, in parallel) into ``build/repro_torch/``.
 2. Holds every kernel against its plain PyTorch version on the card, at
    ragged edge shapes (a row count that is no tile multiple, fewer valid
-   IVF candidates than k, exact ties).
+   IVF candidates than k, exact ties); K3 at every boundary of its routes
+   (`score_plan`) ±1, on 1, 8 and 33 lanes, with no, the last or all slots
+   active, bit for bit repeatable and lane by lane equal to single-lane
+   calls.
 3. Checks the whole release loop on a small input: the card's run and the
    CPU run of the plain versions, fed the same draws, must select the same
    queries and release the same histogram.
@@ -62,8 +65,12 @@
    `plain` mode over the IVF centroids (the IVF probe's first step), K5,
    K2 and K3 at the wave's shapes, K6 and K2's cluster route at the
    factored path's, K2's three launches at U = 2**18 (`timing_only`) — and
-   times each with CUDA events (K1, K2, K4, K5 and K6 also over 200
-   back-to-back replays).
+   times each with CUDA events, one replay at a time and over 200
+   back-to-back replays, each behind a sleep queued on the stream so the
+   host's graph launch is not counted; K2's, K3's and K7's rows also check
+   by profiler that one call launched just the kernels of its route. K3's
+   dense rows have as many active slots, a prefix, as the flat run's (one
+   lane) or the IVF wave's (8 lanes) mean tail.
 
 9. The LM serving tier (`repro_torch.models.LM` under
    `repro_torch.serve.engine.ServeEngine`): holds K8 (flash attention) and
@@ -92,8 +99,9 @@
    one.
 10. The private LP solvers (run before step 9's serving): holds K7
    (`mwu_update`, the fused multiplicative-weights update) to its plain
-   version at U = 1 … 2**20, one row and 8-row grids, three steps, dense
-   and row-id forms, and K1 (``plain``), K3 and K4 at the LP widths 21 and
+   version at U = 1 … 2**20 and every boundary of its routes (`plan`) ±1,
+   one row and 8-row grids, three steps, dense and row-id forms, bit for
+   bit repeatable, and K1 (``plain``), K3 and K4 at the LP widths 21 and
    300; solves small scalar and dual LPs and LP waves on the card and on
    the CPU with the same draws (equal selections), each card lane against
    the card's single solve; then the paper's sizes
@@ -145,9 +153,11 @@ KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score",
 # Timed and checked like a kernel of the list, but no main path runs them
 # (a factored wave is not ported; no path has U past K2's cluster reach, so
 # none runs its three launches; no path updates a row of 2**20 weights with
-# K7): their lines are logged, not in the result.
+# K7; no wave draws a quarter of its tail, which K3 reads past the 50 MB L2
+# while the paths' tails stay in it): their lines are logged, not in the
+# result.
 TIMING_ONLY = ("mwem_step_batch:cluster", "mwem_step:multiblock",
-               "mwu_update:2^20")
+               "mwu_update:2^20", "gather_score_batch:dense")
 REPLACES = {
     "mips_topk": "src/repro/kernels/mips_topk/mips_topk.py:97",
     "ivf_probe": "src/repro/kernels/ivf_probe/ivf_probe.py:120",
@@ -216,10 +226,13 @@ def same_topk(ids_k, s_k, ids_r, s_r, tol: float) -> tuple[bool, float]:
     return ok, err
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median device time of one call of ``fn``, by CUDA events around
-    replays of a CUDA graph that captured the call — so the host's Python
-    overhead between launches is not counted."""
+SLEEP_CYCLES = 200_000  # ≈ 0.1 ms of the SM clock: longer than a graph launch
+
+
+def _graph_of(fn):
+    """A CUDA graph that captured one call of ``fn`` (run once first on a
+    side stream, so lazy set-up such as a workspace's growth stays out of
+    the capture), replayed once."""
     import torch
 
     side = torch.cuda.Stream()
@@ -232,10 +245,24 @@ def time_ms(fn, reps: int = 20) -> float:
         fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Median device time of one call of ``fn``, by CUDA events around
+    replays of a CUDA graph that captured the call — so the host's Python
+    overhead between launches is not counted. A `torch.cuda._sleep` queued
+    before the start event keeps the card busy while the host records it
+    and launches the graph, so the replay starts right after the event and
+    the host's launch is not counted either."""
+    import torch
+
+    graph = _graph_of(fn)
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         graph.replay()
         b.record()
@@ -248,21 +275,15 @@ def replayed_ms(fn, n: int = 200) -> float:
     """Mean device time of one call of ``fn`` over ``n`` back-to-back
     replays of a CUDA graph between one pair of CUDA events: for a kernel
     of a few microseconds, `time_ms`'s one event pair a replay measures
-    mostly the replay's own overhead."""
+    mostly the replay's own overhead. As in `time_ms`, a sleep queued first
+    lets the host queue all ``n`` replays before the start event, so the
+    card runs them back to back and the host's pace is not counted."""
     import torch
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
+    graph = _graph_of(fn)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES * n // 5)
     a.record()
     for _ in range(n):
         graph.replay()
@@ -298,6 +319,30 @@ def bound_ms(nbytes: float, flops: float,
              flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+
+# The kernels one call launches, by route: K7's (`kernels/mwu_update/ops.py::
+# plan`) and K3's (`kernels/mwem_step/ops.py::score_plan`).
+K7_KERNELS = {"warp": {"mwu_warp_kernel"}, "block": {"mwu_block_kernel"},
+              "grid": {"mwu_grid_partial_kernel", "mwu_grid_norm_kernel"}}
+K3_KERNELS = {"narrow": {"gather_score_narrow_kernel"},
+              "split": {"gather_score_split_kernel"}}
+
+
+def score_route(route_nseg: tuple) -> str:
+    """K3's `score_plan` as a row's mode: ``narrow`` or ``split:<segments>``."""
+    route, nseg = route_nseg
+    return route if route == "narrow" else f"{route}:{nseg}"
+
+
+def check_score_stages(row: str, kern, mode: str, expect) -> None:
+    """Log a K3 row's profiler stages and check that one call launched just
+    the kernel of its route."""
+    stages = stage_ms(kern)
+    log(json.dumps({"stages_ms": row, **stages}))
+    want_k = K3_KERNELS[mode.split(":")[0]]
+    expect(set(stages) == want_k,
+           f"{row}: one call launched {sorted(stages)}, not {sorted(want_k)}")
 
 
 class NumpyDraws:
@@ -1008,14 +1053,13 @@ def lm_phases(args, dev, expect, ops) -> list:
                "replaces": REPLACES[row], "launches": n_launch,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        if row == "flash_attention:decode":  # a few µs: the event pair's floor
-            out["replayed_ms"] = dict(zip(("kernel", "plain", "library"),
-                                          (replayed_ms(f) for f in (kern, plain, lib))))
+        out["replayed_ms"] = {"kernel": replayed_ms(kern), "plain": replayed_ms(plain),
+                              "library": None if lib is None else replayed_ms(lib)}
         rows.append(out)
         log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}"
-            + (f", back-to-back {out['replayed_ms']}" if "replayed_ms" in out else ""))
+            + f", back-to-back {out['replayed_ms']}")
     log(json.dumps({"lm_timing_shapes": {
         "flash_attention": [B, Hq, Hkv, S_pre, S_pre, D],
         "flash_attention:decode": [B, Hq, Hkv, 1, L, D, pos_dec],
@@ -1038,19 +1082,29 @@ def dual_opt(b, c) -> float:
 
 
 def k7_edge_shapes(dev, g, expect) -> None:
-    """K7 against its plain version: one row and 8-row grids, U from 1 to
-    2**20 (no multiple of the block, an unaligned tail), three steps, a
-    dense update and one picked by row id. lw' to rtol 1e-6 (the kernel
-    rounds the product and the sum as the plain version does), m exactly,
-    s and p to rtol 1e-5 (an online sum in another order); a single-row
-    call equals its row of the grid."""
+    """K7 against its plain version on each route of `plan` (``warp`` up to
+    WARP_U, ``block`` up to BLOCK_U, ``grid`` past it): U at every boundary
+    of the routes, of the warp route's values a lane and of the grid's
+    blocks a row (GRID_TILE · GRID_BLOCKS_PER_SM · SMs, where a block
+    starts to take two tiles), each ±1, rows not a multiple of 4, one row
+    and 8-row grids, three steps, a dense update and one picked by row id.
+    lw' to rtol 1e-6 (the kernel rounds the product and the sum as the
+    plain version does), m exactly, s and p to rtol 1e-5 (a sum in another
+    order); two identical calls agree bit for bit, and a single-row call
+    equals its row of the grid."""
     import torch
-    from repro_torch.kernels.mwu_update import mwu_update, mwu_update_ref
+    from repro_torch.kernels.mwu_update import mwu_update, mwu_update_ref, plan
+    from repro_torch.kernels.mwu_update.ops import (BLOCK_U, GRID_BLOCKS_PER_SM,
+                                                    GRID_TILE, WARP_U)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    for U in (1, 20, 21, 300, 1023, 1024, 1025, 2 ** 20):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    edges = [32, 64, 512, WARP_U, BLOCK_U, GRID_TILE * GRID_BLOCKS_PER_SM * sms]
+    sizes = sorted({1, 20, 21, 300, 2 ** 20}
+                   | {e + d for e in edges for d in (-1, 0, 1)})
+    for U in sizes:
         for B in (1, 8):
             lw, c, table = 3.0 * randn(B, U), randn(B, U), randn(13, U)
             rows = torch.randint(0, 13, (B,), generator=g, device=dev)
@@ -1058,18 +1112,74 @@ def k7_edge_shapes(dev, g, expect) -> None:
                 for form, args in (("dense", (lw, c, coef)),
                                    ("rows", (lw, table, coef, rows))):
                     got, want = mwu_update(*args), mwu_update_ref(*args)
+                    again = mwu_update(*args)
                     ok = (torch.allclose(got[0], want[0], rtol=1e-6, atol=0)
                           and torch.equal(got[2], want[2])
                           and torch.allclose(got[3], want[3], rtol=1e-5, atol=0)
                           and torch.allclose(got[1], want[1], rtol=1e-5,
-                                             atol=1e-30))
+                                             atol=1e-30)
+                          and all(torch.equal(a, b) for a, b in zip(got, again)))
                     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-                    expect(ok, f"mwu_update U={U} B={B} coef={coef} {form}: "
-                           f"max err {err}")
+                    expect(ok, f"mwu_update U={U} B={B} coef={coef} {form} "
+                           f"{plan(U)}: max err {err}")
             one = mwu_update(lw[B - 1], table, -0.37, rows=rows[B - 1])
             grid = mwu_update(lw, table, -0.37, rows=rows)
             expect(all(torch.equal(a, b[B - 1]) for a, b in zip(one, grid)),
                    f"mwu_update U={U}: a single row differs from its grid row")
+    torch.cuda.synchronize()
+
+
+def k3_edge_cases(dev, g, expect) -> None:
+    """K3 against its plain version on each route of `score_plan`
+    (``narrow`` up to NARROW_U, ``split`` into SEG-float segments past it):
+    U at every boundary ±1 (the narrow route's, one and two segments, the
+    main path's 2**14 and one float past it), rows not a multiple of 4
+    (scalar loads), rows picked by augmented id on both signs, C = 0, 1, 5
+    and 300 slots, at random, none, only the last and all active, on 1, 8
+    and 33 lanes, and one-segment tails of a slot a warp of the grid ±1
+    (where the split route stops giving each warp its own slot and scans
+    the flags); the score within `f32_tol`, inactive slots exactly 0, two
+    identical calls equal bit for bit and each lane of a wave equal to the
+    single-lane call on its row."""
+    import torch
+    from repro_torch.kernels.mwem_step import (NARROW_U, SEG, gather_score,
+                                               gather_score_batch,
+                                               gather_score_batch_ref,
+                                               score_plan)
+
+    m = 37
+    warps = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    sizes = sorted({1, 4, 21, 300, U, U + 1}
+                   | {e + d for e in (NARROW_U, SEG, 2 * SEG) for d in (-1, 0, 1)})
+    for u in sizes:
+        Qs = torch.randn(m, u, generator=g, device=dev)
+        for lanes in (1, LANES, 33):
+            V = torch.randn(lanes, u, generator=g, device=dev)
+            tol = f32_tol(u, float((Qs.abs() @ V.abs().T).max()))
+            counts = (0, 1, 5, 300)
+            if lanes == 1 and u in (300, 301):
+                counts += (warps - 1, warps, warps + 1)
+            for C in counts:
+                aug = torch.randint(0, 2 * m, (lanes, C), generator=g, device=dev)
+                cases = {"random": torch.rand(lanes, C, generator=g, device=dev) < 0.3,
+                         "none": torch.zeros(lanes, C, dtype=torch.bool, device=dev),
+                         "last": torch.arange(C, device=dev).expand(lanes, C) == C - 1,
+                         "all": None}
+                for kind, act in cases.items():
+                    act = None if act is None else act.contiguous()
+                    got = gather_score_batch(Qs, V, aug, act)
+                    again = gather_score_batch(Qs, V, aug, act)
+                    want = gather_score_batch_ref(Qs, V, aug, act)
+                    err = float((got - want).abs().max()) if C else 0.0
+                    ok = err <= tol and torch.equal(got, again)
+                    if act is not None:
+                        ok = ok and float(got[~act].abs().sum()) == 0.0
+                    for b in sorted({0, lanes - 1}):
+                        one = gather_score(Qs, V[b], aug[b],
+                                           None if act is None else act[b])
+                        ok = ok and torch.equal(one, got[b])
+                    expect(ok, f"gather_score U={u} {score_plan(u)} lanes={lanes} "
+                           f"C={C} active={kind}: max err {err} (tol {tol})")
     torch.cuda.synchronize()
 
 
@@ -1357,7 +1467,7 @@ def lp_main_path(args, dev, expect, ops) -> dict:
             TorchDraws.seeded(args.seed + 80, dev), index=flat_n)),
     )
     for name, run in profiled:
-        res, prof = profile_window(run, step_kernel="mwu_update_kernel")
+        res, prof = profile_window(run, step_kernel="mwu_warp_kernel")
         event_ms = (1e3 * res.total_seconds / 51 if hasattr(res, "total_seconds")
                     else 1e3 * float(np.mean(res.iter_seconds[1:])))
         log(json.dumps({"profile": name, **prof, "event_iter_ms": event_ms}))
@@ -1377,8 +1487,8 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
     from repro_torch.kernels.mwem_step import (gather_score, gather_score_batch,
                                                gather_score_batch_ref,
-                                               gather_score_ref)
-    from repro_torch.kernels.mwu_update import mwu_update, mwu_update_ref
+                                               gather_score_ref, score_plan)
+    from repro_torch.kernels.mwu_update import mwu_update, mwu_update_ref, plan
 
     g = torch.Generator(device=dev).manual_seed(seed + 70)
     A, b, ivf, N = lp["A"], lp["b"], lp["ivf"], lp["N"]
@@ -1419,19 +1529,26 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
         back = [replayed_ms(f) for f in calls]
         nbytes = 4.0 * 4 * B * U + 8.0 * B + (8.0 * B if sel is not None else 0.0)
         b_ms, b_by = bound_ms(nbytes, 8.0 * B * U)
+        route, S = plan(U)
+        stages = stage_ms(calls[0])
+        log(json.dumps({"stages_ms": row, **stages}))
+        want_k = K7_KERNELS[route]
+        expect(set(stages) == want_k,
+               f"{row}: one call launched {sorted(stages)}, not {sorted(want_k)}")
         out = {"name": row, "route": "cuda", "source": SOURCES["mwu_update"],
                "replaces": REPLACES["mwu_update"], "launches": n_launch,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                "library": "torch.softmax(torch.add(lw, c, alpha=coef), -1): "
                           "two calls", "shape": [B, U],
+               "mode": route if S == 1 else f"{route}:{S}",
                "replayed_ms": dict(zip(("kernel", "plain", "library"), back))}
         if row in TIMING_ONLY:
             log(json.dumps({"timing_only": out}))
         else:
             rows.append(out)
-        log(f"{row} ({B}, {U}): {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-            f"{lib_ms:.4f} ms in two calls, bound {b_ms:.6f} ms by {b_by}; "
+        log(f"{row} ({B}, {U}) [{out['mode']}]: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms in two calls, bound {b_ms:.6f} ms by {b_by}; "
             f"back-to-back {back[0]:.4f} / {back[1]:.4f} / {back[2]:.4f} ms), "
             f"max err {err:.3g}, launches {n_launch}")
 
@@ -1510,15 +1627,19 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         if lib_ms is not None:
             out["library"] = "torch.topk(torch.mv(V, q), k): two calls"
-        if name in ("mips_topk", "ivf_probe"):
-            out["replayed_ms"] = {"kernel": replayed_ms(kern),
-                                  "plain": replayed_ms(plain),
-                                  "library": replayed_ms(library[row])
-                                  if row in library else None}
+        out["replayed_ms"] = {"kernel": replayed_ms(kern),
+                              "plain": replayed_ms(plain),
+                              "library": replayed_ms(library[row])
+                              if row in library else None}
+        if "gather_score" in name:
+            out["mode"] = score_route(score_plan(dp if row.endswith(":lp")
+                                                 else DUAL_M))
+            check_score_stages(row, kern, out["mode"], expect)
         rows.append(out)
         if row == "mips_topk:lp":
             log(json.dumps({"stages_ms": row, **stage_ms(kern)}))
-        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+        tag = f" [{out['mode']}]" if "mode" in out else ""
+        log(f"{row}{tag}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}"
             f"{'; back to back ' + json.dumps(out['replayed_ms']) if 'replayed_ms' in out else ''}")
@@ -1604,7 +1725,7 @@ def main() -> int:
                                                marginal_gather_score_ref,
                                                mwem_step, mwem_step_batch,
                                                mwem_step_batch_ref,
-                                               mwem_step_ref, plan)
+                                               mwem_step_ref, plan, score_plan)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mwu_update import mwu_update
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -1701,6 +1822,8 @@ def main() -> int:
                f"gather_score u={u}: max err {err}")
     torch.cuda.synchronize()
     log(f"edge shapes: {'ok' if not failures else 'FAILED'}")
+    k3_edge_cases(dev, g, expect)
+    log(f"K3 edge cases: {'ok' if not failures else 'FAILED'}")
     k1_edge_cases(dev, g, expect)
     log(f"K1 select edge cases: {'ok' if not failures else 'FAILED'}")
     lm_edge_shapes(dev, g, expect)
@@ -2196,7 +2319,9 @@ def main() -> int:
     tail_cap = 4 * math.ceil(math.sqrt(2 * m))
     rows_gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
     aug = torch.randint(0, 2 * m, (tail_cap,), generator=rows_gen, device=dev)
-    active = torch.rand(tail_cap, generator=rows_gen, device=dev) < 0.25
+    # the tail's active slots are a prefix, as many as the flat run's mean tail
+    n_act = min(tail_cap, max(1, round(float(np.mean(runs["flat"].n_scored)) - k)))
+    active = torch.arange(tail_cap, device=dev) < n_act
     probe, _ = mips_topk(ivf._cents, v, ivf.nprobe, "plain")
     n_valid = int(ivf_probe_stream(probe, ivf._cell_rows, ivf._cells8, v, k)[2])
     sel = torch.tensor(runs["flat"].selected[-1], device=dev)
@@ -2204,7 +2329,6 @@ def main() -> int:
     lw0 = torch.zeros(U, device=dev)
     ps0 = runs["flat"].p_hat.clone()
     vq = float((Q.abs() @ v.abs()).max())
-    n_act = int(active.sum())
     cents = ivf._cents
     # (row, wrapper, mode, launches, kernel call, plain call, tolerance,
     #  bytes, f32 operations). K1 runs in `aug` mode only on the flat run
@@ -2233,7 +2357,8 @@ def main() -> int:
          lambda: mwem_step_ref(lw0, p, ps0, Q, sel, h, noise, rule="hardt",
                                eta=math.sqrt(math.log(U) / T)),
          None, 4.0 * 8 * U + 16, 12.0 * U),
-        ("gather_score", "gather_score", None, launches["gather_score"],
+        ("gather_score", "gather_score", score_route(score_plan(U)),
+         launches["gather_score"],
          lambda: gather_score(Q, v, aug, active),
          lambda: gather_score_ref(Q, v, aug, active),
          f32_tol(U, vq), 4.0 * n_act * U + 4 * U + 13 * tail_cap,
@@ -2273,8 +2398,15 @@ def main() -> int:
     noise_b = torch.full((LANES,), 1e-3, device=dev)
     aug_b = torch.randint(0, 2 * m, (LANES, tail_cap), generator=rows_gen,
                           device=dev)
-    active_b = torch.rand(LANES, tail_cap, generator=rows_gen, device=dev) < 0.25
-    n_act_b = int(active_b.sum())
+    # each lane's tail: as many active slots as the IVF wave's mean tail
+    n_act_w = min(tail_cap, max(1, round(float(waves["ivf"].n_scored.mean()) - k)))
+    active_b = (torch.arange(tail_cap, device=dev) < n_act_w).expand(
+        LANES, tail_cap).contiguous()
+    n_act_b = LANES * n_act_w
+    # a quarter of each lane's tail active: rows past the 50 MB L2 (timing only)
+    active_q = (torch.arange(tail_cap, device=dev) < tail_cap // 4).expand(
+        LANES, tail_cap).contiguous()
+    n_act_q = LANES * (tail_cap // 4)
     eta = math.sqrt(math.log(U) / T)
     cases += [
         ("ivf_probe_batch", "ivf_probe_batch", None, launches["ivf_probe_batch"],
@@ -2294,13 +2426,19 @@ def main() -> int:
          lambda: mwem_step_batch_ref(lw_b, p_b, ps_b, Q, sel_b, hb_main,
                                      noise_b, rule="hardt", eta=eta),
          None, LANES * (4.0 * 8 * U + 12), LANES * 12.0 * U),
-        ("gather_score_batch", "gather_score_batch", None,
+        ("gather_score_batch", "gather_score_batch", score_route(score_plan(U)),
          launches["gather_score_batch"],
          lambda: gather_score_batch(Q, Vb, aug_b, active_b),
          lambda: gather_score_batch_ref(Q, Vb, aug_b, active_b),
          f32_tol(U, float((Q.abs() @ Vb.abs().T).max())),
          4.0 * n_act_b * U + 4 * LANES * U + 13 * LANES * tail_cap,
          2.0 * n_act_b * U),
+        ("gather_score_batch:dense", "gather_score_batch", score_route(score_plan(U)),
+         0, lambda: gather_score_batch(Q, Vb, aug_b, active_q),
+         lambda: gather_score_batch_ref(Q, Vb, aug_b, active_q),
+         f32_tol(U, float((Q.abs() @ Vb.abs().T).max())),
+         4.0 * n_act_q * U + 4 * LANES * U + 13 * LANES * tail_cap,
+         2.0 * n_act_q * U),
     ]
     # K6 and K2's cluster route at the factored path's shapes: the probe of
     # the marginal-IVF release, a tail of tail_cap slots with as many
@@ -2413,11 +2551,11 @@ def main() -> int:
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         if lib:
             out["library"] = lib[1]
-        if name in ("mips_topk", "ivf_probe", "ivf_probe_batch",
-                    "marginal_gather_score") or name.startswith("mwem_step"):
-            out["replayed_ms"] = {"kernel": replayed_ms(kern),
-                                  "plain": replayed_ms(plain),
-                                  "library": replayed_ms(lib[0]) if lib else None}
+        out["replayed_ms"] = {"kernel": replayed_ms(kern),
+                              "plain": replayed_ms(plain),
+                              "library": replayed_ms(lib[0]) if lib else None}
+        if name in ("gather_score", "gather_score_batch"):
+            check_score_stages(row, kern, mode, expect)
         if name.startswith("mwem_step"):  # the kernels one call launches
             stages = stage_ms(kern)
             log(json.dumps({"stages_ms": row, **stages}))
@@ -2434,7 +2572,8 @@ def main() -> int:
             rows_out.append(out)
         if row in ("mips_topk", "ivf_probe_batch", "marginal_gather_score"):
             log(json.dumps({"stages_ms": row, **stage_ms(kern)}))
-        log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+        tag = f" [{out['mode']}]" if "mode" in out else ""
+        log(f"{row}{tag}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}"
             f"{'; back to back ' + json.dumps(out['replayed_ms']) if 'replayed_ms' in out else ''}")

@@ -1,6 +1,6 @@
 // Shared device code of the port's kernels: the 64-bit candidate keys of
 // the top-k kernels (selected by topk_select.cuh) and the warp dot product
-// that mips_topk, ivf_probe and mwem_step score with.
+// that mips_topk and ivf_probe score with.
 //
 // A candidate is one 64-bit key: the high word is an order-preserving image
 // of its f32 score, the low word is (0xFFFFFFFF - tie), where `tie` is the

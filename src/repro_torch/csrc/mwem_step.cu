@@ -46,13 +46,49 @@
 // of a single-lane launch on the same route.
 //
 // K3 replaces `_score_kernel` / `gather_score_pallas` of the same file:
-// sign[c] * <q_rows[base[c]], v> for the lazy-EM tail candidates, one warp per
-// candidate, the augmented id j decoded in the kernel to (j % m, +1 if j < m
-// else -1). Candidates whose `active` flag is clear are not read (their score
-// is written as 0), so the bytes follow the tail the draw actually asked for.
+// sign[c] * <q_rows[base[c]], v> for the lazy-EM tail candidates, the
+// augmented id j decoded in the kernel to (j % m, +1 if j < m else -1).
+// Candidates whose `active` flag is clear are not read (their score is
+// written as 0), so the bytes follow the tail the draw actually asked for.
 // Bound: device-memory bytes, one row of U floats per active candidate. A
 // wave scores all its lanes' tails in one launch: candidate c of the (B, C)
 // buffers belongs to lane c / C and is scored against that lane's probe.
+// Two routes, picked by kernels/mwem_step/ops.py::score_plan(U) from U
+// alone (never from C or the lanes, so a lane of a wave is the single-lane
+// call bit for bit); the launch function checks the same limits:
+// * narrow (U <= kNarrowU = 32: the LP rows [A, b], 21 wide): one thread a
+//   candidate, kNarrowThreads candidates a block. The block's lanes' probes
+//   sit in shared memory; a warp loads its active candidates' rows whole,
+//   one coalesced row a load (a lane a float, 32 loads in flight a lane),
+//   into a padded shared tile, and each thread sums its own row in order:
+//   no shuffle chain.
+// * split (wider rows: the main path's 2^14, the dual's 300): a candidate's
+//   row is cut into nseg = ceil(U / kSeg) segments of kSeg = 2048 floats,
+//   and an item is one (active slot, segment). The grid is sized from the
+//   SM count. Every block first reads all the flags (a few KB: the tail's
+//   slots, not its rows; a warp a 32-slot chunk, a coalesced byte a lane,
+//   counted by one ballot) and scans the chunks' counts into offsets in
+//   shared memory, so it knows the active slots without a second launch;
+//   block 0 writes the inactive slots' 0. No row byte of an inactive slot
+//   is read and no warp is spent on one: the n_act * nseg items are split
+//   into even contiguous shares, one a warp, ordered by segment then rank,
+//   so a warp's items mostly share their lane and segment and it loads that
+//   stretch of the probe into registers once. (With one segment and no
+//   more slots than warps, as in the dual's tail, a warp takes its own slot
+//   and skips the scan.) A warp issues its 16 sixteen-byte row loads a
+//   lane, finds its next item's slot and id while they are in flight, then
+//   sums. Knowing the active items is what keeps the card full: a work
+//   counter over (slot group, segment) grabs would spend a warp a round
+//   trip on every empty group, and a tail's active slots are nearly a
+//   prefix, so large grabs would leave them to a few warps. With nseg = 1
+//   the warp writes sign * dot; else each batch of up to 32 items publishes
+//   at once, a lane an item: partials to a scratch buffer, then each slot's
+//   ticket in the zeroed workspace (kernels/_build.py::workspace) raised;
+//   the lane that raises one to nseg sums that slot's partials in segment
+//   order, writes sign * sum and zeroes the ticket, so the bits repeat from
+//   run to run and the kernel leaves the workspace zeroed. Rows that are
+//   not 16-byte aligned (U % 4 != 0) load floats into the same places, so
+//   the sum's order does not depend on alignment.
 //
 // K6 replaces `_marginal_score_kernel` / `marginal_gather_score_pallas` of
 // the same file: K3's contract for a factored k-way marginal workload, where
@@ -91,7 +127,16 @@ constexpr int kElems = 4;        // cluster K2: values a thread
 constexpr int kBlockU = kStepThreads * kElems;
 constexpr int kMaxCluster = 8;   // cluster K2: most blocks a cluster (portable)
 constexpr int kClusterU = kMaxCluster * kBlockU;  // cluster K2: most U
-constexpr int kScoreWarps = 8;
+constexpr int kScoreWarps = 8;   // K3 split route: warps a block
+constexpr int kScoreThreads = kScoreWarps * kWarp;
+constexpr int kScoreBlocksPerSm = 1;  // the probe and a row segment in registers
+constexpr int kFlagLoads = 8;    // K3 split route: flag loads in flight a lane
+constexpr int kMaxChunks = 8192; // K3 split route: most 32-slot chunks of flags
+constexpr int kSeg = 2048;       // K3 split route: floats a segment
+constexpr int kSegLoads = kSeg / 4 / kWarp;  // 16-byte row loads a lane a segment
+constexpr int kNarrowU = 32;     // K3 narrow route: most U
+constexpr int kNarrowWarps = 4;
+constexpr int kNarrowThreads = kNarrowWarps * kWarp;  // candidates a block
 constexpr int kMbThreads = 256;  // three-launch K2: threads a block
 constexpr int kMbElems = 8;      // values a thread
 constexpr int kChunk = kMbThreads * kMbElems;
@@ -281,26 +326,247 @@ mwem_step_cluster_kernel(const long long* __restrict__ sel,
   cluster_wait();  // ... and the others with this block's
 }
 
-__global__ void __launch_bounds__(kScoreWarps * kWarp)
-gather_score_kernel(const float* __restrict__ q_rows, int m, int U,
-                    const float* __restrict__ v, const long long* __restrict__ aug,
-                    const uint8_t* __restrict__ active, int C, int lanes, int vec,
-                    float* __restrict__ out) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const long long c = static_cast<long long>(blockIdx.x) * kScoreWarps + warp;
-  if (c >= static_cast<long long>(C) * lanes) return;
-  v += (c / C) * U;  // the candidate's lane's probe
-  if (active != nullptr && !active[c]) {
-    if (lane == 0) out[c] = 0.0f;
-    return;
+// K3 split route: register e of a lane holds floats [4j, 4j + 4) of a
+// segment, j = lane + 32e, by one 16-byte load, or by four 4-byte loads
+// where the row or the probe is not 16-byte aligned -- the same floats in
+// the same places, so both paths sum in the same order. Pads read as 0.
+__device__ __forceinline__ void load_segment(const float* __restrict__ p, int len,
+                                             int lane, int vec, float4 (&x)[kSegLoads]) {
+  if (vec) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    const int n4 = len >> 2;
+#pragma unroll
+    for (int e = 0; e < kSegLoads; ++e) {
+      const int i = lane + e * kWarp;
+      x[e] = i < n4 ? __ldg(p4 + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kSegLoads; ++e) {
+      const int i = 4 * (lane + e * kWarp);
+      x[e].x = i < len ? __ldg(p + i) : 0.0f;
+      x[e].y = i + 1 < len ? __ldg(p + i + 1) : 0.0f;
+      x[e].z = i + 2 < len ? __ldg(p + i + 2) : 0.0f;
+      x[e].w = i + 3 < len ? __ldg(p + i + 3) : 0.0f;
+    }
   }
-  const long long j = aug[c];
-  const long long base = j % m;
-  const float sign = j < m ? 1.0f : -1.0f;
-  const float acc = rt::warp_dot(q_rows + base * U, v, U, lane, vec);
-  if (lane == 0) out[c] = acc * sign;
 }
 
+// K3 split route: <row segment, probe segment> from registers, by one
+// warp in a fixed order; every lane returns the sum.
+__device__ __forceinline__ float segment_sum(const float4 (&x)[kSegLoads],
+                                             const float4 (&y)[kSegLoads]) {
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int e = 0; e < kSegLoads; ++e)
+    a[e % 4] += x[e].x * y[e].x + x[e].y * y[e].y + x[e].z * y[e].z + x[e].w * y[e].w;
+  float acc = (a[0] + a[1]) + (a[2] + a[3]);
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+// K3 split route: the active slot of rank r (0-based, in (lane, slot) order)
+// from the block's exclusive offsets of its 32-slot chunks; all lanes of the
+// warp call it and get the slot.
+__device__ __forceinline__ long long active_slot(long long r, const int* s_off, int nch,
+                                                 long long total,
+                                                 const uint8_t* __restrict__ active,
+                                                 int lane) {
+  int lo = 0, hi = nch;  // s_off[lo] <= r < s_off[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (s_off[mid] <= r) lo = mid;
+    else hi = mid;
+  }
+  const long long c = static_cast<long long>(lo) * kWarp + lane;
+  unsigned bal = __ballot_sync(0xffffffffu,
+                               c < total && (active == nullptr || active[c]));
+  for (int need = static_cast<int>(r - s_off[lo]); need > 0; --need) bal &= bal - 1;
+  return static_cast<long long>(lo) * kWarp + __ffs(bal) - 1;
+}
+
+// K3 split route; see the note at the top of the file. `part` holds nseg
+// floats a slot, `ticket` one zeroed word a slot; lanes * C <= kMaxChunks * 32.
+__global__ void __launch_bounds__(kScoreThreads, kScoreBlocksPerSm)
+gather_score_split_kernel(const float* __restrict__ q_rows, int m, int U,
+                          const float* __restrict__ v, const long long* __restrict__ aug,
+                          const uint8_t* __restrict__ active, int C, int lanes, int nseg,
+                          int vec, float* __restrict__ part, unsigned* __restrict__ ticket,
+                          float* __restrict__ out) {
+  __shared__ int s_off[kMaxChunks + 1];
+  __shared__ int s_warp[kScoreWarps];
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const long long total = static_cast<long long>(C) * lanes;
+  const int nch = static_cast<int>(rt::ceil_div(total, kWarp));
+  float4 y[kSegLoads];  // the probe's segment
+  float4 xr[kSegLoads];  // the row's segment: every load issued first
+
+  if (nseg == 1 && total <= static_cast<long long>(gridDim.x) * kScoreWarps) {
+    // A warp a slot (the dual's tail): no scan to wait for.
+    const long long c = static_cast<long long>(blockIdx.x) * kScoreWarps + warp;
+    if (c >= total) return;
+    const long long j = aug[c];
+    if (active != nullptr && !active[c]) {
+      if (lane == 0) out[c] = 0.0f;
+      return;
+    }
+    load_segment(v + (c / C) * U, U, lane, vec, y);
+    load_segment(q_rows + (j % m) * U, U, lane, vec, xr);
+    const float acc = segment_sum(xr, y);
+    if (lane == 0) out[c] = acc * (j < m ? 1.0f : -1.0f);
+    return;
+  }
+
+  // Every block counts the active slots of each 32-slot chunk (warp w takes
+  // chunks w, w + 8, ..., a coalesced byte a lane; block 0 also writes the
+  // inactive slots' 0), then scans the counts into exclusive offsets.
+  for (int c0 = warp; c0 < nch; c0 += kScoreWarps * kFlagLoads) {
+    bool f[kFlagLoads];
+#pragma unroll
+    for (int i = 0; i < kFlagLoads; ++i) {
+      const long long c = static_cast<long long>(c0 + i * kScoreWarps) * kWarp + lane;
+      f[i] = c0 + i * kScoreWarps < nch && c < total && (active == nullptr || active[c]);
+    }
+#pragma unroll
+    for (int i = 0; i < kFlagLoads; ++i) {
+      const int ch = c0 + i * kScoreWarps;
+      const long long c = static_cast<long long>(ch) * kWarp + lane;
+      const int n = __popc(__ballot_sync(0xffffffffu, f[i]));
+      if (ch < nch && lane == 0) s_off[ch] = n;
+      if (blockIdx.x == 0 && ch < nch && c < total && !f[i]) out[c] = 0.0f;
+    }
+  }
+  __syncthreads();
+  const int per = (nch + kScoreThreads - 1) / kScoreThreads;  // chunks a thread scans
+  const int lo = tid * per, hi = min(nch, lo + per);
+  int cnt = 0;
+  for (int i = lo; i < hi; ++i) cnt += s_off[i];
+  int x = cnt;  // inclusive scan over the warp, then over the warps
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == kWarp - 1) s_warp[warp] = x;
+  __syncthreads();
+  int run = 0;
+  for (int w = 0; w < warp; ++w) run += s_warp[w];
+  run += x - cnt;
+  for (int i = lo; i < hi; ++i) {
+    const int n = s_off[i];
+    s_off[i] = run;
+    run += n;
+  }
+  if (tid == kScoreThreads - 1) s_off[nch] = run;  // every active slot
+  __syncthreads();
+
+  // Items (segment, rank): item k is segment k / n_act of the active slot of
+  // rank k % n_act. Warp gw of W takes the contiguous share [gw q, gw q + q).
+  const long long n_act = s_off[nch];
+  const long long n_items = n_act * nseg;
+  const long long W = static_cast<long long>(gridDim.x) * kScoreWarps;
+  const long long q = rt::ceil_div(n_items, W);
+  const long long k0 = (static_cast<long long>(blockIdx.x) * kScoreWarps + warp) * q;
+  const long long k1 = k0 + q < n_items ? k0 + q : n_items;
+  if (k0 >= k1) return;
+  long long y_lane = -1;  // y is reloaded when (lane, segment) changes
+  int y_seg = -1;
+  long long my_c = 0, my_j = 0;  // lane i holds the i-th item of the batch
+  int my_seg = 0;
+  float my_acc = 0.0f;
+  long long c = active_slot(k0 % n_act, s_off, nch, total, active, lane);
+  long long j = aug[c];
+  for (long long k = k0; k < k1; ++k) {
+    const int seg = static_cast<int>(k / n_act);
+    const int s_lo = seg * kSeg;
+    const int len = min(kSeg, U - s_lo);
+    const long long b = c / C;
+    if (b != y_lane || seg != y_seg) {
+      load_segment(v + b * U + s_lo, len, lane, vec, y);
+      y_lane = b;
+      y_seg = seg;
+    }
+    load_segment(q_rows + (j % m) * U + s_lo, len, lane, vec, xr);
+    // the next item's slot and id while the row is in flight
+    long long c_next = c, j_next = j;
+    if (k + 1 < k1) {
+      c_next = active_slot((k + 1) % n_act, s_off, nch, total, active, lane);
+      j_next = aug[c_next];
+    }
+    const float acc = segment_sum(xr, y);
+    const int i = static_cast<int>((k - k0) % kWarp);
+    if (lane == i) {
+      my_c = c;
+      my_j = j;
+      my_seg = seg;
+      my_acc = acc;
+    }
+    if (i == kWarp - 1 || k + 1 == k1) {  // publish the batch, a lane an item
+      const bool has = lane <= i;
+      const float sign = my_j < m ? 1.0f : -1.0f;
+      if (nseg == 1) {
+        if (has) out[my_c] = my_acc * sign;
+      } else {
+        if (has) part[my_c * nseg + my_seg] = my_acc;
+        __threadfence();
+        if (has && atomicAdd(ticket + my_c, 1u) == static_cast<unsigned>(nseg - 1)) {
+          __threadfence();  // the slot's last item: sum its partials in order
+          float sum = 0.0f;
+          for (int e = 0; e < nseg; ++e) sum += __ldcg(part + my_c * nseg + e);
+          out[my_c] = sum * sign;
+          ticket[my_c] = 0;
+        }
+      }
+    }
+    c = c_next;
+    j = j_next;
+  }
+}
+
+// K3 narrow route; see the note at the top of the file. Thread t of block x
+// scores slot x * kNarrowThreads + t of the (lanes * C) flat buffers.
+__global__ void __launch_bounds__(kNarrowThreads)
+gather_score_narrow_kernel(const float* __restrict__ q_rows, int m, int U,
+                           const float* __restrict__ v, const long long* __restrict__ aug,
+                           const uint8_t* __restrict__ active, int C, int lanes,
+                           float* __restrict__ out) {
+  constexpr int kPitch = kNarrowU + 1;  // conflict-free rows of the tile
+  __shared__ float s_v[kNarrowThreads * kNarrowU];  // the block's lanes' probes
+  __shared__ float s_row[kNarrowWarps][kWarp * kPitch];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const long long total = static_cast<long long>(C) * lanes;
+  const long long c0 = static_cast<long long>(blockIdx.x) * kNarrowThreads;
+  const long long c = c0 + threadIdx.x;
+  const long long l0 = c0 / C;
+  const long long c_end = total < c0 + kNarrowThreads ? total : c0 + kNarrowThreads;
+  const int nv = static_cast<int>((c_end - 1) / C - l0 + 1) * U;
+  for (int i = threadIdx.x; i < nv; i += kNarrowThreads) s_v[i] = v[l0 * U + i];
+  const bool in = c < total;
+  const bool on = in && (active == nullptr || active[c]);
+  const long long j = on ? aug[c] : 0;
+  const long long base = j % m;
+  const unsigned mask = __ballot_sync(0xffffffffu, on);
+  float x[kWarp];
+#pragma unroll
+  for (int t = 0; t < kWarp; ++t) {  // row t of the warp: lane l loads float l
+    const long long bt = __shfl_sync(0xffffffffu, base, t);
+    x[t] = ((mask >> t) & 1u) && lane < U ? __ldg(q_rows + bt * U + lane) : 0.0f;
+  }
+  float* tile = s_row[warp];
+#pragma unroll
+  for (int t = 0; t < kWarp; ++t) tile[t * kPitch + lane] = x[t];
+  __syncthreads();  // the probes and the tile are in
+  if (!in) return;
+  if (!on) {
+    out[c] = 0.0f;
+    return;
+  }
+  const float* row = tile + lane * kPitch;
+  const float* q = s_v + (c / C - l0) * U;
+  float acc = 0.0f;
+  for (int e = 0; e < U; ++e) acc += row[e] * q[e];
+  out[c] = acc * (j < m ? 1.0f : -1.0f);
+}
 
 // Three-launch K2, pass 1: the block's partial <q, h> and <q, p>, written to
 // part[(lane * nblk + block) * 2 + {0, 1}].
@@ -506,6 +772,9 @@ extern "C" int mwem_step_cluster_u() { return kClusterU; }
 extern "C" int mwem_step_max_cluster() { return kMaxCluster; }
 extern "C" int mwem_step_chunk() { return kChunk; }
 extern "C" int marginal_gather_score_max_k() { return kMaxK; }
+extern "C" int gather_score_narrow_u() { return kNarrowU; }
+extern "C" int gather_score_seg() { return kSeg; }
+extern "C" int gather_score_max_slots() { return kMaxChunks * kWarp; }
 extern "C" int marginal_gather_score_walk_cols() { return kWalkCols; }
 
 // Returns a cudaError_t code (0 on success). Launches on `stream` and does
@@ -575,21 +844,41 @@ extern "C" int mwem_step_launch(const long long* sel, const float* lw, const flo
 }
 
 // `v` is (lanes, U); `aug` holds (lanes, C) int64 augmented ids in [0, 2m);
-// `active` is (lanes, C) bytes or null; `out` is (lanes, C).
+// `active` is (lanes, C) bytes or null; `out` is (lanes, C). `nseg` is
+// kernels/mwem_step/ops.py::score_plan's: 0 takes the narrow route, which
+// needs U <= gather_score_narrow_u(); else it is ceil(U / gather_score_seg())
+// for the split route, which needs U > gather_score_narrow_u(),
+// lanes * C <= gather_score_max_slots() and, when nseg > 1, a zeroed int32
+// workspace `ws` of at least lanes * C words (`ws_len`) and a `scratch` of
+// lanes * C * nseg floats.
 extern "C" int gather_score_launch(const float* q_rows, int m, int U, const float* v,
                                    const long long* aug, const uint8_t* active, int C,
-                                   int lanes, float* out, void* stream) {
-  if (m <= 0 || U <= 0 || C < 0 || lanes <= 0)
+                                   int lanes, int nseg, float* scratch, unsigned* ws,
+                                   long long ws_len, float* out, void* stream) {
+  if (m <= 0 || U <= 0 || C < 0 || lanes <= 0 || nseg < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long total = static_cast<long long>(C) * lanes;
+  if (nseg == 0) {
+    if (U > kNarrowU) return static_cast<int>(cudaErrorInvalidValue);
+    gather_score_narrow_kernel<<<static_cast<unsigned>(rt::ceil_div(total, kNarrowThreads)),
+                                 kNarrowThreads, 0, st>>>(q_rows, m, U, v, aug, active,
+                                                          C, lanes, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (U <= kNarrowU || nseg != rt::ceil_div(U, kSeg) || total > kMaxChunks * kWarp ||
+      (nseg > 1 && (ws == nullptr || ws_len < total || scratch == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = rt::sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   const int vec = (U % 4 == 0) && (reinterpret_cast<uintptr_t>(q_rows) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(v) % 16 == 0);
-  const long long total = static_cast<long long>(C) * lanes;
-  const unsigned blocks = static_cast<unsigned>((total + kScoreWarps - 1) / kScoreWarps);
-  gather_score_kernel<<<blocks, kScoreWarps * kWarp, 0,
-                        static_cast<cudaStream_t>(stream)>>>(q_rows, m, U, v, aug,
-                                                             active, C, lanes, vec,
-                                                             out);
+  long long blocks = rt::ceil_div(total * nseg, kScoreWarps);  // at most an item a warp
+  if (blocks > static_cast<long long>(kScoreBlocksPerSm) * sms)
+    blocks = static_cast<long long>(kScoreBlocksPerSm) * sms;
+  gather_score_split_kernel<<<static_cast<unsigned>(blocks), kScoreThreads, 0, st>>>(
+      q_rows, m, U, v, aug, active, C, lanes, nseg, vec, scratch, ws, out);
   return static_cast<int>(cudaGetLastError());
 }
 

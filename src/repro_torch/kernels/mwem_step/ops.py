@@ -11,10 +11,13 @@ wrapper allocates (see the source). `mwem_step` and
 `MAX_U` = 16384 (either route) also in ``launches_multiblock``, and those
 of them that took one cluster launch also in ``launches_cluster``.
 `mwem_step_batch` runs B lanes in one launch; `gather_score_batch` scores
-all B lanes' tails in one K3 launch. K6 walks only its candidate's cell,
-from the workload's `walk_table`, built on the workload's first K6 call
-and kept while the workload lives. CPU tensors run the plain versions of
-`ref`.
+all B lanes' tails in one K3 launch, on the route `score_plan(U)` picks:
+``narrow`` (a thread a candidate, U ≤ `NARROW_U`) or ``split`` (each row
+cut into `SEG`-float segments, the active (slot, segment) items shared
+evenly among warps, per-segment partials in a scratch buffer). K6 walks
+only its candidate's cell, from the workload's `walk_table`, built on the
+workload's first K6 call and kept while the workload lives. CPU tensors
+run the plain versions of `ref`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ CLUSTER_U = 32768  # most U of one cluster launch: 8 × 1024 threads × 4; mwem_
 MAX_CLUSTER = 8   # most blocks a cluster; mwem_step_max_cluster()
 CHUNK = 2048      # three-launch route: elements a block; mwem_step_chunk()
 MAX_LANES = 65535  # lanes of the three-launch route (a grid row each)
+NARROW_U = 32     # K3: most U of the narrow route; gather_score_narrow_u()
+SEG = 2048        # K3 split route: floats a segment; gather_score_seg()
+MAX_SLOTS = 262144  # K3 split route: most lanes × C slots; gather_score_max_slots()
 MAX_K = 32        # K6: attributes a clique; marginal_gather_score_max_k()
 WALK_COLS = 6     # K6: ints a walk-table column; marginal_gather_score_walk_cols()
 
@@ -51,7 +57,8 @@ def _lib() -> ctypes.CDLL:
     lib.mwem_step_launch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
                                      _I, _F, _P, _P, _P, _I, _P, _P]
     lib.mwem_step_launch.restype = _I
-    lib.gather_score_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P]
+    lib.gather_score_launch.argtypes = [_P, _I, _I, _P, _P, _P, _I, _I, _I,
+                                        _P, _P, _L, _P, _P]
     lib.gather_score_launch.restype = _I
     lib.marginal_gather_score_launch.argtypes = [_P, _P, _P, _I, _I, _P, _P,
                                                  _P, _I, _P, _P]
@@ -59,6 +66,9 @@ def _lib() -> ctypes.CDLL:
     for fn, want in (("mwem_step_cluster_u", CLUSTER_U),
                      ("mwem_step_max_cluster", MAX_CLUSTER),
                      ("mwem_step_chunk", CHUNK),
+                     ("gather_score_narrow_u", NARROW_U),
+                     ("gather_score_seg", SEG),
+                     ("gather_score_max_slots", MAX_SLOTS),
                      ("marginal_gather_score_max_k", MAX_K),
                      ("marginal_gather_score_walk_cols", WALK_COLS)):
         getattr(lib, fn).argtypes = []
@@ -193,6 +203,18 @@ mwem_step_batch.launches_multiblock = 0
 mwem_step_batch.launches_cluster = 0
 
 
+def score_plan(U: int) -> tuple[str, int]:
+    """K3's route for rows of U floats and the segments a row is cut into,
+    from U alone (never from the candidates or the lanes, so a lane of a
+    wave scores as the single-lane call does): ``("narrow", 0)`` up to
+    `NARROW_U`, a thread a candidate; else ``("split", ⌈U / SEG⌉)``."""
+    if U < 1:
+        raise ValueError(f"gather_score needs U ≥ 1, got {U}")
+    if U <= NARROW_U:
+        return "narrow", 0
+    return "split", -(-U // SEG)
+
+
 def _launch_score(q_rows, V, aug_idx, active, dev):
     m, U = q_rows.shape
     lanes, C = aug_idx.shape
@@ -201,12 +223,24 @@ def _launch_score(q_rows, V, aug_idx, active, dev):
     _build.require("aug_idx", aug_idx, torch.int64, shape=(lanes, C), device=dev)
     if active is not None:
         _build.require("active", active, torch.bool, shape=(lanes, C), device=dev)
+    route, nseg = score_plan(U)
+    if route == "split" and lanes * C > MAX_SLOTS:
+        raise ValueError(f"gather_score scores at most {MAX_SLOTS} slots a call "
+                         f"past U = {NARROW_U}, got {lanes} × {C}")
     lib = _lib()
     out = torch.empty((lanes, C), dtype=torch.float32, device=dev)
+    ws = scratch = None
+    if nseg > 1:  # a partial a segment, a ticket a slot
+        ws = _build.workspace(dev, lanes * C)
+        scratch = torch.empty(lanes * C * nseg, dtype=torch.float32, device=dev)
     err = lib.gather_score_launch(q_rows.data_ptr(), m, U, V.data_ptr(),
                                   aug_idx.data_ptr(),
                                   None if active is None else active.data_ptr(),
-                                  C, lanes, out.data_ptr(), _build.stream_ptr(dev))
+                                  C, lanes, nseg,
+                                  None if scratch is None else scratch.data_ptr(),
+                                  None if ws is None else ws.data_ptr(),
+                                  0 if ws is None else ws.numel(),
+                                  out.data_ptr(), _build.stream_ptr(dev))
     _build.check(lib, err, "gather_score")
     return out
 
