@@ -11,7 +11,13 @@
    IVF candidates than k, exact ties); K3 at every boundary of its routes
    (`score_plan`) ±1, on 1, 8 and 33 lanes, with no, the last or all slots
    active, bit for bit repeatable and lane by lane equal to single-lane
-   calls.
+   calls; K4 on both routes of `probe_plan` and both places it selects
+   (d = 1 … 2**14 across the narrow and segment boundaries, pad slots at
+   the start, the middle and the end of a cell and at random, holding NaN,
+   an empty probed cell and all of them empty, k = 1, n_valid, above it and
+   MAX_K, nprobe = 1, 8192 and 8200 probed slots, an unaligned probe,
+   integer ties in probe then slot order, every call repeated bit for
+   bit).
 3. Checks the whole release loop on a small input: the card's run and the
    CPU run of the plain versions, fed the same draws, must select the same
    queries and release the same histogram.
@@ -67,8 +73,10 @@
    factored path's, K2's three launches at U = 2**18 (`timing_only`) — and
    times each with CUDA events, one replay at a time and over 200
    back-to-back replays, each behind a sleep queued on the stream so the
-   host's graph launch is not counted; K2's, K3's and K7's rows also check
-   by profiler that one call launched just the kernels of its route. K3's
+   host's graph launch is not counted; K2's, K3's, K4's, K7's and K9's rows
+   also check by profiler that one call launched just the kernels of its
+   route (K9's bound counts C·Bᵀ once a (batch, chunk), as the kernel does;
+   the row keeps the earlier count, once a head, beside it). K3's
    dense rows have as many active slots, a prefix, as the flat run's (one
    lane) or the IVF wave's (8 lanes) mean tail.
 
@@ -80,7 +88,10 @@
    key, bf16 and f32; K8's bf16 tensor-core prefill route up to llama's
    heads at 2048 × 2048 and its decode route at Skv = 1 … 2112 with
    g·Sq = 1 … 16, each case logged with the route `plan()` chose; ragged SSD
-   chunks, y and the final state); serves the
+   chunks, y and the final state; around K9's `plan`: P = 1 … 128 by
+   N = 1, 5, 128, S = 1 … 2Q, every boundary of its 32-row slices ±1, a
+   grid of several blocks an SM, dt = 0 rows, cum reaching −64, every
+   call repeated bit for bit); serves the
    two smoke configurations on the card and on the CPU with the same f32
    weights (logits, and tokens under the margin rule); then serves
    llama3.2-3b at its published widths and depth (28 layers, bf16, random
@@ -90,7 +101,9 @@
    finite logits, decode logits equal to the prefill of the extended prompt
    on two requests — and mamba2-130m (24 layers, prompts of 256–1024, K9
    launched 24 times a prefill); profiles one prefill and one decode window
-   of each (the ``serve/engine/*`` ranges); and times K8 at the prefill and
+   of each (the ``serve/engine/*`` ranges; the prefill's share spent in
+   K9's kernels, and the mamba prefill call's device ms beside K9's 24
+   launches at its row's back-to-back time); and times K8 at the prefill and
    decode shapes and K9 at the prefill shape beside their plain versions
    and, for K8, `scaled_dot_product_attention` as the library yardstick
    (the decode row also by 200 back-to-back replays, `replayed_ms`).
@@ -292,26 +305,32 @@ def replayed_ms(fn, n: int = 200) -> float:
     return a.elapsed_time(b) / n
 
 
-def stage_ms(fn, reps: int = 20) -> dict:
+def stage_ms(fn, reps: int = 20, traces: int = 3) -> dict:
     """Mean device ms a call of ``fn`` spends in each kernel it launches,
-    by kernel name, from one `torch.profiler` trace of ``reps`` calls: the
-    stages (score, select, decode) of a multi-launch kernel."""
+    by kernel name, from a `torch.profiler` trace of ``reps`` calls: the
+    stages (score, select, decode) of a multi-launch kernel. A trace that
+    holds no kernel at all (the profiler on the card has now and then
+    dropped a whole trace of short calls) is taken again, up to ``traces``
+    times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split("<")[0].rsplit("::", 1)[-1]
-            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].rsplit("::", 1)[-1]
+                out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        if out:
+            break
     return out
 
 
@@ -322,11 +341,18 @@ def bound_ms(nbytes: float, flops: float,
 
 
 # The kernels one call launches, by route: K7's (`kernels/mwu_update/ops.py::
-# plan`) and K3's (`kernels/mwem_step/ops.py::score_plan`).
+# plan`), K3's (`kernels/mwem_step/ops.py::score_plan`), K4's
+# (`kernels/ivf_probe/ops.py::probe_plan`: route, then where it selects) and
+# K9's (`kernels/ssd_scan/ops.py`: both launches, on every shape).
 K7_KERNELS = {"warp": {"mwu_warp_kernel"}, "block": {"mwu_block_kernel"},
               "grid": {"mwu_grid_partial_kernel", "mwu_grid_norm_kernel"}}
 K3_KERNELS = {"narrow": {"gather_score_narrow_kernel"},
               "split": {"gather_score_split_kernel"}}
+K4_KERNELS = {("split", "last_block"): {"ivf_split_kernel"},
+              ("split", "finish"): {"ivf_split_kernel", "topk_finish_kernel"},
+              ("narrow", "last_block"): {"ivf_narrow_kernel"},
+              ("narrow", "finish"): {"ivf_narrow_kernel", "topk_finish_kernel"}}
+K9_KERNELS = {"ssd_cb_kernel", "ssd_chunk_kernel"}
 
 
 def score_route(route_nseg: tuple) -> str:
@@ -335,14 +361,25 @@ def score_route(route_nseg: tuple) -> str:
     return route if route == "narrow" else f"{route}:{nseg}"
 
 
+def k4_mode(p: dict) -> str:
+    """K4's `probe_plan` as a row's mode: ``<route>:<segments>:<select>``."""
+    return f"{p['route']}:{p['segments']}:{p['select']}"
+
+
+def check_stages(row: str, kern, want_k: set, expect) -> dict:
+    """Log a row's profiler stages and check that one call launched just
+    the kernels ``want_k``."""
+    stages = stage_ms(kern)
+    log(json.dumps({"stages_ms": row, **stages}))
+    expect(set(stages) == want_k,
+           f"{row}: one call launched {sorted(stages)}, not {sorted(want_k)}")
+    return stages
+
+
 def check_score_stages(row: str, kern, mode: str, expect) -> None:
     """Log a K3 row's profiler stages and check that one call launched just
     the kernel of its route."""
-    stages = stage_ms(kern)
-    log(json.dumps({"stages_ms": row, **stages}))
-    want_k = K3_KERNELS[mode.split(":")[0]]
-    expect(set(stages) == want_k,
-           f"{row}: one call launched {sorted(stages)}, not {sorted(want_k)}")
+    check_stages(row, kern, K3_KERNELS[mode.split(":")[0]], expect)
 
 
 class NumpyDraws:
@@ -585,6 +622,109 @@ def k5_edge_cases(dev, g, expect) -> None:
     torch.cuda.synchronize()
 
 
+def k4_edge_cases(dev, g, expect) -> None:
+    """K4 against its plain version on each route of `probe_plan` (``narrow``
+    up to NARROW_D, ``split`` into SEG-float segments past it; the select in
+    the last block up to CACHE_KEYS slots, in a second launch past them):
+    d = 1, 4, 21, 32, 33, 300, 2047, 2048, 2049 and 2**14; pad slots at the
+    end, the start, the middle of every cell and at random (pad rows hold
+    NaN, so a pad row that is read shows); a probed cell without a valid
+    slot and every probed cell empty; k = 1, n_valid, above n_valid and
+    MAX_K; nprobe = 1; 8192 probed slots with k = MAX_K (the most shared
+    memory the last block takes) and 8200 (the second launch); a probe that
+    is a row of a (3, d + 1) block (unaligned); integer rows whose exact
+    ties must follow probe order, then slot order (bit for bit); every call
+    repeated, bit for bit. n_valid exactly; scores within `f32_tol`. Each
+    case logs its plan."""
+    import torch
+    from repro_torch.kernels.ivf_probe import ivf_probe_stream, ivf_probe_stream_ref
+    from repro_torch.kernels.ivf_probe.ops import probe_plan
+    from repro_torch.kernels.mips_topk.ops import MAX_K
+
+    def table(nlist, cap, d, pads, integer=False):
+        if integer:
+            rows = torch.randint(-2, 3, (nlist, cap, d), generator=g, device=dev).float()
+        else:
+            rows = torch.randn(nlist, cap, d, generator=g, device=dev)
+        ids = torch.arange(nlist * cap, dtype=torch.int32,
+                           device=dev).reshape(nlist, cap)
+        slot = torch.arange(cap, device=dev).expand(nlist, cap)
+        pad = {"end": slot >= (2 * cap) // 3, "start": slot < cap // 4,
+               "middle": (slot >= cap // 3) & (slot < (2 * cap) // 3),
+               "random": torch.rand(nlist, cap, generator=g, device=dev) < 0.4,
+               "none": slot < 0}[pads]
+        ids[pad] = -1
+        rows[pad] = math.nan
+        return rows, ids
+
+    def probe_of(nlist, nprobe):
+        return torch.randperm(nlist, generator=g, device=dev)[:nprobe].int()
+
+    def probe_vec(d, integer=False):
+        if integer:
+            block = torch.randint(-2, 3, (3, d + 1), generator=g, device=dev).float()
+        else:
+            block = torch.randn(3, d + 1, generator=g, device=dev)
+        return block[1, :d]  # at an offset of d + 1 floats
+
+    def check(rows, ids, probe, q, k, what, exact=False):
+        cap, d = rows.shape[1], rows.shape[2]
+        got = ivf_probe_stream(probe, rows, ids, q, k)
+        again = ivf_probe_stream(probe, rows, ids, q, k)
+        want = ivf_probe_stream_ref(probe, rows, ids, q, k)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if exact:
+            ok, err = all(torch.equal(a, b) for a, b in zip(got, want)), 0.0
+        else:
+            mag = float((rows[probe.long()].nan_to_num(0.0).abs() @ q.abs()).max())
+            ok, err = same_topk(got[0], got[1], want[0], want[1], f32_tol(d, mag))
+            ok = ok and int(got[2]) == int(want[2])
+        p = probe_plan(probe.numel(), cap, d)
+        expect(ok and same, f"ivf_probe {what} nprobe={probe.numel()} cap={cap} "
+               f"d={d} k={k} ({k4_mode(p)}): max err {err}, n_valid "
+               f"{int(got[2])}/{int(want[2])}, repeat "
+               f"{'equal' if same else 'DIFFERS'}")
+        return p
+
+    modes = {}
+    for d in (1, 4, 21, 32, 33, 300, 2047, 2048, 2049, 2 ** 14):
+        nlist, cap = (12, 40) if d > 2000 else (30, 150)
+        q = probe_vec(d)
+        for pads in ("end", "start", "middle", "random"):
+            rows, ids = table(nlist, cap, d, pads)
+            probe = probe_of(nlist, 5)
+            n_ok = int((ids[probe.long()] >= 0).sum())
+            for k in sorted({1, max(1, n_ok), n_ok + 7}):
+                p = check(rows, ids, probe, q, k, f"pads {pads}")
+                modes[k4_mode(p)] = modes.get(k4_mode(p), 0) + 1
+        rows, ids = table(nlist, cap, d, "random")
+        probe = probe_of(nlist, 5)
+        ids[int(probe[1])] = -1  # a probed cell without a valid slot
+        check(rows, ids, probe, q, 30, "an empty probed cell")
+        check(rows, ids, probe[:1], q, 3, "nprobe 1")
+        ids[probe.long()] = -1  # every probed cell empty: n_valid 0
+        check(rows, ids, probe, q, 20, "every probed cell empty")
+        qi = probe_vec(d, integer=True)
+        rows, ids = table(nlist, cap, d, "middle", integer=True)
+        probe = probe_of(nlist, 4)
+        for k in (1, 25, 200):
+            check(rows, ids, probe, qi, k, "integer ties", exact=True)
+    for d in (21, 33, 300, 2049):
+        rows, ids = table(20, 150, d, "random")
+        check(rows, ids, probe_of(20, 6), probe_vec(d), MAX_K, "k = MAX_K")
+    for cap, nprobe in ((1024, 8), (1025, 8)):  # 8192 slots: last block; 8200: finish
+        for d in (21, 33, 2049):
+            rows, ids = table(10, cap, d, "random")
+            probe, q = probe_of(10, nprobe), probe_vec(d)
+            for k in (64, MAX_K):
+                p = check(rows, ids, probe, q, k, "the select's edge")
+            check_stages(f"ivf_probe edge d={d} slots={nprobe * cap}",
+                         lambda: ivf_probe_stream(probe, rows, ids, q, 64),
+                         K4_KERNELS[(p["route"], p["select"])], expect)
+    log(json.dumps({"k4_edge_modes": modes}))
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------ the LM serving tier
 
 class Metered:
@@ -758,7 +898,60 @@ def lm_edge_shapes(dev, g, expect) -> None:
             ok = ok and torch.allclose(a, b, rtol=2e-4, atol=2e-4 * scale)
         expect(ok, f"ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={chunk}: "
                f"max err / scale {err}")
+    k9_edge_shapes(dev, g, expect)
     torch.cuda.synchronize()
+
+
+def k9_edge_shapes(dev, g, expect) -> None:
+    """K9 against its plain version (y and the final state, rtol/atol 2e-4,
+    atol scaled by the output's magnitude) around its `plan`: P = 1, 7, 16,
+    17, 100, 128 by N = 1, 5, 128; S = 1, Q − 1, Q, Q + 1, 2Q with B = H = 1
+    and on a small grid; P at every boundary of the 32-row slices ±1; a
+    grid of several blocks an SM; rows with dt = 0; cum reaching −64 in a
+    chunk (A = −2, dt = 0.5); every call repeated, bit for bit. Each case
+    logs its plan's slices."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import plan
+
+    Q = 64
+
+    def case(B, S, H, P, N, what, zero_dt=False, cum64=False):
+        x = torch.randn(B, S, H, P, generator=g, device=dev)
+        Bm = torch.randn(B, S, N, generator=g, device=dev)
+        Cm = torch.randn(B, S, N, generator=g, device=dev)
+        dt = 0.01 + 0.49 * torch.rand(B, S, H, generator=g, device=dev)
+        A = -(0.1 + 1.9 * torch.rand(H, generator=g, device=dev))
+        if zero_dt:
+            dt[:, ::3] = 0.0
+        if cum64:
+            dt.fill_(0.5)
+            A.fill_(-2.0)
+        got = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+        again = ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+        want = ssd_chunked(x, dt, A, Bm, Cm, chunk=min(Q, max(8, S)))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok, err = same, 0.0
+        for a, b in zip(got, want):
+            scale = max(1.0, float(b.abs().max()))
+            err = max(err, float((a - b).abs().max()) / scale)
+            ok = ok and torch.allclose(a, b, rtol=2e-4, atol=2e-4 * scale)
+        p = plan(B, S, H, P, N, min(Q, max(8, S)))
+        expect(ok, f"ssd_scan {what} B={B} S={S} H={H} P={P} N={N} (Ps {p['Ps']}, "
+               f"{p['slices']} slices): max err / scale {err}, repeat "
+               f"{'equal' if same else 'DIFFERS'}")
+
+    for P in (1, 7, 16, 17, 100, 128):
+        for N in (1, 5, 128):
+            case(2, 100, 3, P, N, "P x N")
+    for S in (1, Q - 1, Q, Q + 1, 2 * Q):
+        case(1, S, 1, 64, 128, "S, B = H = 1")
+        case(3, S, 2, 17, 5, "S")
+    for P in (31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128):
+        case(1, 70, 2, P, 16, "slice edge")
+    case(4, 130, 150, 64, 128, "grid of several blocks an SM")
+    case(2, 130, 3, 64, 128, "dt = 0 rows", zero_dt=True)
+    case(1, 2 * Q, 2, 64, 128, "cum to -64", cum64=True)
 
 
 def small_lm_card_vs_cpu(dev, seed, expect) -> None:
@@ -930,7 +1123,10 @@ def profile_lm(model, dev, prompts, max_len, steps: int = 8) -> None:
             busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
         busy_ms = sum(busy.values()) / 1e3
+        k9_ms = sum(us for k, us in busy.items() if "ssd_" in k) / 1e3
         log(json.dumps({"profile": f"{model.cfg.name} {name}", "calls": n,
+                        "ssd_scan_ms_per_call": k9_ms / n,
+                        "ssd_scan_share_of_busy": k9_ms / busy_ms,
                         "host_ms_per_call": sum(e.time_range.elapsed_us()
                                                 for e in host) / 1e3 / n,
                         "device_busy_ms_per_call": busy_ms / n,
@@ -964,6 +1160,7 @@ def lm_phases(args, dev, expect, ops) -> list:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import plan as ssd_plan
 
     small_lm_card_vs_cpu(dev, args.seed, expect)
     log(f"small LM, card vs CPU: {'ok' if not expect.failures else 'FAILED'}")
@@ -1006,7 +1203,15 @@ def lm_phases(args, dev, expect, ops) -> list:
     As = -(0.1 + 1.9 * torch.rand(H, generator=g, device=dev))
     pairs_pre = B * Hq * S_pre * (S_pre + 1) / 2   # causal (query, key) pairs
     pairs_dec = B * Hq * (pos_dec + 1)
-    chunks = -(-S_m // Q)
+    # K9's least work: C·Bᵀ and W·x only where j ≤ i (q(q + 1)·N and
+    # q(q + 1)·P flops for a chunk of q rows), a ragged last chunk at its
+    # real rows, C·Bᵀ once a (batch, chunk) (B and C are shared by the
+    # heads), the state update every chunk and C·stateᵀ from the second
+    # chunk on (the first chunk's state is zero)
+    k9_rows = [min(Q, S_m - c * Q) for c in range(-(-S_m // Q))]
+    k9_cb_flops = B * sum(q * (q + 1) * N for q in k9_rows)
+    k9_head_flops = sum(q * (q + 1) * P + 2.0 * q * P * N * (1 + (c > 0))
+                        for c, q in enumerate(k9_rows))
 
     def sdpa(qq, kk, vv, causal):
         return F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
@@ -1031,9 +1236,12 @@ def lm_phases(args, dev, expect, ops) -> list:
          lambda: ssd_chunked(xs, dts, As, Bs, Cs, chunk=Q), None, 2e-4,
          4.0 * (2 * B * S_m * H * P + B * S_m * H + H + 2 * B * S_m * N
                 + B * H * P * N),
-         B * H * chunks * (2.0 * Q * Q * N + 2.0 * Q * Q * P + 4.0 * Q * P * N),
-         F32_FLOP_PER_S),
+         k9_cb_flops + B * H * k9_head_flops, F32_FLOP_PER_S),
     ]
+    # the earlier count of the bound: C·Bᵀ once a (batch, head, chunk)
+    k9_bound_per_head = bound_ms(
+        cases[-1][6], B * H * (k9_cb_flops / B + k9_head_flops))[0]
+    k9_plan = ssd_plan(B, S_m, H, P, N, Q)
     rows = []
     for row, n_launch, kern, plain, lib, tol, nbytes, flops, peak in cases:
         got, want = kern(), plain()
@@ -1055,11 +1263,20 @@ def lm_phases(args, dev, expect, ops) -> list:
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
         out["replayed_ms"] = {"kernel": replayed_ms(kern), "plain": replayed_ms(plain),
                               "library": None if lib is None else replayed_ms(lib)}
+        if row == "ssd_scan":
+            out["mode"] = f"Ps:{k9_plan['Ps']}"
+            out["bound_ms_cb_per_head"] = k9_bound_per_head
+            check_stages(row, kern, K9_KERNELS, expect)
+            log(json.dumps({"ssd_scan_plan": k9_plan}))
         rows.append(out)
         log(f"{row}: {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms by {b_by}), max err {err:.3g}, launches {n_launch}"
             + f", back-to-back {out['replayed_ms']}")
+    pre = runs[MAMBA]["prefill"]
+    log(json.dumps({"mamba_prefill": {
+        "calls": pre["calls"], "ms_per_call": pre["ms_per_call"],
+        "ssd_scan_launches_per_call": cfg_m.n_layers}}))
     log(json.dumps({"lm_timing_shapes": {
         "flash_attention": [B, Hq, Hkv, S_pre, S_pre, D],
         "flash_attention:decode": [B, Hq, Hkv, 1, L, D, pos_dec],
@@ -1484,6 +1701,7 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
     import torch
     from repro_torch.core.lazy_em import default_tail_cap
     from repro_torch.kernels.ivf_probe import ivf_probe_stream, ivf_probe_stream_ref
+    from repro_torch.kernels.ivf_probe.ops import probe_plan
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
     from repro_torch.kernels.mwem_step import (gather_score, gather_score_batch,
                                                gather_score_batch_ref,
@@ -1530,11 +1748,7 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
         nbytes = 4.0 * 4 * B * U + 8.0 * B + (8.0 * B if sel is not None else 0.0)
         b_ms, b_by = bound_ms(nbytes, 8.0 * B * U)
         route, S = plan(U)
-        stages = stage_ms(calls[0])
-        log(json.dumps({"stages_ms": row, **stages}))
-        want_k = K7_KERNELS[route]
-        expect(set(stages) == want_k,
-               f"{row}: one call launched {sorted(stages)}, not {sorted(want_k)}")
+        check_stages(row, calls[0], K7_KERNELS[route], expect)
         out = {"name": row, "route": "cuda", "source": SOURCES["mwu_update"],
                "replaces": REPLACES["mwu_update"], "launches": n_launch,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1635,6 +1849,10 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
             out["mode"] = score_route(score_plan(dp if row.endswith(":lp")
                                                  else DUAL_M))
             check_score_stages(row, kern, out["mode"], expect)
+        if name == "ivf_probe":
+            pp = probe_plan(ivf.nprobe, ivf._cells8.shape[1], dp)
+            out["mode"] = k4_mode(pp)
+            check_stages(row, kern, K4_KERNELS[(pp["route"], pp["select"])], expect)
         rows.append(out)
         if row == "mips_topk:lp":
             log(json.dumps({"stages_ms": row, **stage_ms(kern)}))
@@ -1714,7 +1932,7 @@ def main() -> int:
                                                ivf_probe_stream_batch,
                                                ivf_probe_stream_batch_ref,
                                                ivf_probe_stream_ref)
-    from repro_torch.kernels.ivf_probe.ops import wave_plan
+    from repro_torch.kernels.ivf_probe.ops import probe_plan, wave_plan
     from repro_torch.kernels.mips_topk import mips_topk, mips_topk_ref
     from repro_torch.kernels.mwem_step import (CLUSTER_U, MAX_U,
                                                gather_score,
@@ -1826,6 +2044,8 @@ def main() -> int:
     log(f"K3 edge cases: {'ok' if not failures else 'FAILED'}")
     k1_edge_cases(dev, g, expect)
     log(f"K1 select edge cases: {'ok' if not failures else 'FAILED'}")
+    k4_edge_cases(dev, g, expect)
+    log(f"K4 edge cases: {'ok' if not failures else 'FAILED'}")
     lm_edge_shapes(dev, g, expect)
     log(f"LM kernel edge shapes: {'ok' if not failures else 'FAILED'}")
 
@@ -2344,7 +2564,8 @@ def main() -> int:
          lambda: mips_topk_ref(cents, v, ivf.nprobe, "plain"),
          f32_tol(U, float((cents.abs() @ v.abs()).max())),
          4.0 * ivf.nlist * U + 4 * U + 8 * ivf.nprobe, 2.0 * ivf.nlist * U),
-        ("ivf_probe", "ivf_probe", None, launches["ivf_probe"],
+        ("ivf_probe", "ivf_probe",
+         k4_mode(probe_plan(ivf.nprobe, ivf._cells8.shape[1], U)), launches["ivf_probe"],
          lambda: ivf_probe_stream(probe, ivf._cell_rows, ivf._cells8, v, k),
          lambda: ivf_probe_stream_ref(probe, ivf._cell_rows, ivf._cells8, v, k),
          f32_tol(U, float((ivf._cell_rows[probe.long()].abs() @ v.abs()).max())),
@@ -2556,14 +2777,14 @@ def main() -> int:
                               "library": replayed_ms(lib[0]) if lib else None}
         if name in ("gather_score", "gather_score_batch"):
             check_score_stages(row, kern, mode, expect)
+        if name == "ivf_probe":
+            route, _, select = mode.split(":")
+            check_stages(row, kern, K4_KERNELS[(route, select)], expect)
         if name.startswith("mwem_step"):  # the kernels one call launches
-            stages = stage_ms(kern)
-            log(json.dumps({"stages_ms": row, **stages}))
-            want_k = ({"mwem_step_cluster_kernel"} if mode.startswith("cluster")
-                      else {"mwem_step_dots_kernel", "mwem_step_update_kernel",
-                            "mwem_step_norm_kernel"})
-            expect(set(stages) == want_k,
-                   f"{row}: one call launched {sorted(stages)}, not {sorted(want_k)}")
+            check_stages(row, kern,
+                         {"mwem_step_cluster_kernel"} if mode.startswith("cluster")
+                         else {"mwem_step_dots_kernel", "mwem_step_update_kernel",
+                               "mwem_step_norm_kernel"}, expect)
         if mode:
             out["mode"] = mode
         if row in TIMING_ONLY:

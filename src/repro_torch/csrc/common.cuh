@@ -1,6 +1,7 @@
 // Shared device code of the port's kernels: the 64-bit candidate keys of
-// the top-k kernels (selected by topk_select.cuh) and the warp dot product
-// that mips_topk and ivf_probe score with.
+// the top-k kernels (selected by topk_select.cuh), the warp dot product
+// that mips_topk scores with, and the cp.async copies of
+// ivf_probe's wave (K5) and ssd_scan.
 //
 // A candidate is one 64-bit key: the high word is an order-preserving image
 // of its f32 score, the low word is (0xFFFFFFFF - tie), where `tie` is the
@@ -76,6 +77,31 @@ __device__ __forceinline__ float warp_dot(const float* __restrict__ row,
   for (int off = kWarp / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return acc;
+}
+
+// cp.async copies of 16 or 4 bytes from device to shared memory; `bytes`
+// below the size zero-fills the rest (0: a zero fill that reads nothing).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 inline int next_pow2(int x) {

@@ -14,6 +14,7 @@ machine may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -105,6 +106,21 @@ def workspace(device: torch.device, words: int) -> torch.Tensor:
         ws = torch.zeros(max(words, 1 << 16), dtype=torch.int32, device=device)
         _WORKSPACES[device] = ws
     return ws
+
+
+def sm_count(device=None) -> int:
+    """Streaming multiprocessors of ``device`` (the current card when None),
+    which the kernels' launch plans size their grids from."""
+    if device is None or device.index is None:
+        index = torch.cuda.current_device()
+    else:
+        index = device.index
+    return _sm_count(index)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,10 +1,13 @@
 """Public wrappers of the fused IVF probe.
 
 `ivf_probe_stream` is kernel K4 (``csrc/ivf_probe.cu``): given the probed
-cell ids on the device, it reads only those cells' rows from the
-cell-grouped table and keeps the top-k. `ivf_probe_topk` is the whole
-probe: the centroid top-nprobe through `mips_topk` (K1, ``plain`` mode),
-then K4 — the cell ids never leave the device.
+cell ids on the device, it reads only those cells' valid rows from the
+cell-grouped table and keeps the top-k, on the route `probe_plan` picks
+(``split``: the valid rows' segments shared evenly over the card; ``narrow``:
+a thread a slot), selecting in its last block when the probed cells hold at
+most `CACHE_KEYS` slots. `ivf_probe_topk` is the whole probe: the centroid
+top-nprobe through `mips_topk` (K1, ``plain`` mode), then K4 — the cell ids
+never leave the device.
 
 `ivf_probe_stream_batch` is kernel K5 (same source): a wave of B probes
 over the deduplicated union of their cells, each unique cell read once
@@ -33,18 +36,32 @@ from repro_torch.kernels.mips_topk.ops import MAX_K, mips_topk
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 MAX_LANES = 16  # lanes one K5 launch scores; ivf_probe_batch_max_lanes()
+ROUTES = ("split", "narrow")  # K4's routes, in the launch function's numbering
+SEG = 2048            # K4 split: floats a row segment; ivf_probe_seg()
+NARROW_D = 32         # K4 narrow: most d; ivf_probe_narrow_d()
+NARROW_THREADS = 512  # K4 narrow: slots a block; ivf_probe_narrow_threads()
+MAX_SLOTS = 2 ** 18   # K4: most nprobe · cap; ivf_probe_max_slots()
+MAX_PROBE = 4096      # K4: most nprobe; ivf_probe_max_probe()
+CACHE_KEYS = 8192     # K4 selects in its last block up to this many slots
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ivf_probe")
-    lib.ivf_probe_scratch_len.argtypes = [_I, _I]
-    lib.ivf_probe_scratch_len.restype = _L
     lib.topk_workspace_len.argtypes = [_L]
     lib.topk_workspace_len.restype = _L
-    lib.ivf_probe_launch.argtypes = [_P, _I, _P, _P, _I, _I, _P, _I, _P, _L,
-                                     _P, _L, _P, _P, _P, _P]
+    lib.ivf_probe_launch.argtypes = [_P, _I, _P, _P, _I, _I, _P, _I, _I, _I,
+                                     _I, _P, _L, _P, _L, _P, _P, _P, _P]
     lib.ivf_probe_launch.restype = _I
+    for fn, want in (("ivf_probe_seg", SEG), ("ivf_probe_narrow_d", NARROW_D),
+                     ("ivf_probe_narrow_threads", NARROW_THREADS),
+                     ("ivf_probe_max_slots", MAX_SLOTS),
+                     ("ivf_probe_max_probe", MAX_PROBE),
+                     ("ivf_probe_cache_keys", CACHE_KEYS)):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = _I
+        if getattr(lib, fn)() != want:
+            raise RuntimeError(f"csrc/ivf_probe.cu {fn}() and ops disagree")
     lib.ivf_probe_batch_max_lanes.argtypes = []
     lib.ivf_probe_batch_max_lanes.restype = _I
     lib.ivf_probe_batch_plan.argtypes = [_I, _I, _I, _I, _P]
@@ -55,6 +72,41 @@ def _lib() -> ctypes.CDLL:
     if lib.ivf_probe_batch_max_lanes() != MAX_LANES:
         raise RuntimeError("csrc/ivf_probe.cu and ops.MAX_LANES disagree")
     return lib
+
+
+def probe_plan(nprobe: int, cap: int, d: int, sms: int | None = None) -> dict:
+    """K4's launch over nprobe probed cells of ``cap`` slots and rows of d
+    floats, on a card of ``sms`` SMs (the current card's when None):
+
+    - ``route``: ``narrow`` for d ≤ `NARROW_D` (a thread a slot, `blocks`
+      = ⌈slots / NARROW_THREADS⌉), else ``split`` (one block an SM, rows
+      cut into ``segments`` of `SEG` floats; the valid (slot, segment)
+      items are shared evenly among the warps, never a grid from cap);
+    - ``select``: ``last_block`` (the scoring launch's last block selects)
+      when the probed cells hold at most `CACHE_KEYS` slots, else
+      ``finish`` (a second launch, `topk_finish_kernel`);
+    - ``scratch``: int64 words for the keys, their row ids and the segment
+      partials;
+      ``tickets``: the zeroed workspace words the launch raises.
+    """
+    slots = nprobe * cap
+    if nprobe < 1 or cap < 1 or d < 1:
+        raise ValueError(f"ivf_probe needs nprobe, cap, d ≥ 1; got {nprobe}, "
+                         f"{cap}, {d}")
+    if slots > MAX_SLOTS or nprobe > MAX_PROBE:
+        raise ValueError(f"ivf_probe takes nprobe ≤ {MAX_PROBE} and nprobe·cap ≤ "
+                         f"{MAX_SLOTS} slots; got {nprobe} and {slots}")
+    if d <= NARROW_D:
+        route, segments, blocks = "narrow", 1, -(-slots // NARROW_THREADS)
+    else:
+        if sms is None:
+            sms = _build.sm_count()
+        route, segments, blocks = "split", -(-d // SEG), sms
+    parts = slots * segments if segments > 1 else 0
+    return {"route": route, "segments": segments, "blocks": blocks,
+            "select": "last_block" if slots <= CACHE_KEYS else "finish",
+            "slots": slots, "scratch": slots + -(-slots // 2) + -(-parts // 2),
+            "tickets": 1 + (slots if parts else 0)}
 
 
 def wave_plan(n_slots: int, cap: int, d: int, lanes: int) -> dict:
@@ -90,16 +142,16 @@ def ivf_probe_stream(probe: torch.Tensor, cell_rows: torch.Tensor,
     _build.require("cells", cells, torch.int32, shape=(nlist, cap))
     _build.require("q", q, torch.float32, shape=(d,))
     lib = _lib()
-    words = lib.ivf_probe_scratch_len(nprobe, cap)
-    if words < 0:
-        raise RuntimeError("ivf_probe: cannot query the device's SM count")
-    scratch = torch.empty(words, dtype=torch.int64, device=dev)
-    ws = _build.workspace(dev, lib.topk_workspace_len(0))
+    p = probe_plan(nprobe, cap, d, _build.sm_count(dev))
+    scratch = torch.empty(p["scratch"], dtype=torch.int64, device=dev)
+    ws = _build.workspace(dev, lib.topk_workspace_len(p["tickets"]))
     ids = torch.empty(k, dtype=torch.int32, device=dev)
     scores = torch.empty(k, dtype=torch.float32, device=dev)
     n_valid = torch.empty((), dtype=torch.int32, device=dev)
     err = lib.ivf_probe_launch(probe.data_ptr(), nprobe, cell_rows.data_ptr(),
                                cells.data_ptr(), cap, d, q.data_ptr(), k,
+                               ROUTES.index(p["route"]), p["blocks"],
+                               int(p["select"] == "last_block"),
                                scratch.data_ptr(), scratch.numel(),
                                ws.data_ptr(), ws.numel(),
                                ids.data_ptr(), scores.data_ptr(),

@@ -45,11 +45,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def grid_slice(U: int, S: int) -> int:
     """Elements a block of the ``grid`` route owns when S blocks share a
     row of U: whole tiles of `GRID_TILE`, as the launch function computes
@@ -73,7 +68,7 @@ def plan(U: int, sms: int | None = None) -> tuple[str, int]:
     if U <= BLOCK_U:
         return "block", 1
     if sms is None:
-        sms = _sms(torch.cuda.current_device())
+        sms = _build.sm_count()
     tiles = -(-U // GRID_TILE)
     S = max(1, min(tiles, GRID_BLOCKS_PER_SM * sms))
     return "grid", -(-U // grid_slice(U, S))
@@ -115,8 +110,7 @@ def mwu_update(lw: torch.Tensor, c: torch.Tensor, coef: float,
     out_p = torch.empty_like(lw2)
     out_m = torch.empty(B, dtype=torch.float32, device=dev)
     out_s = torch.empty(B, dtype=torch.float32, device=dev)
-    route, S = plan(U, _sms(dev.index if dev.index is not None
-                            else torch.cuda.current_device()))
+    route, S = plan(U, _build.sm_count(dev))
     scratch = None
     if route == "grid":  # (max, Σexp) a block
         scratch = torch.empty(2 * B * S, dtype=torch.float32, device=dev)
