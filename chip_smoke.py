@@ -17,7 +17,13 @@
    an empty probed cell and all of them empty, k = 1, n_valid, above it and
    MAX_K, nprobe = 1, 8192 and 8200 probed slots, an unaligned probe,
    integer ties in probe then slot order, every call repeated bit for
-   bit).
+   bit). Past one launch's limits, which the wrappers split into groups of
+   launches: K4 over every cell of the main IVF (nprobe = 724, 266432
+   slots, past MAX_SLOTS; exhaustive, so it must also match the flat aug
+   top-k), over 5000 cells (past MAX_PROBE) and over every cell of the
+   LP's IVF (nprobe = 1024, in step 10); K3 on a wave of 192 tails of 1452
+   slots over Q (past MAX_SLOTS), equal bit for bit to its lanes scored
+   one by one. Each is timed (an ``edge_row`` line).
 3. Checks the whole release loop on a small input: the card's run and the
    CPU run of the plain versions, fed the same draws, must select the same
    queries and release the same histogram.
@@ -65,12 +71,22 @@
    baseline, each ledger equal to its preview, K6 and K2's cluster route
    launched in both fast modes, every K2 step on one cluster launch), the
    adaptive worst-marginal loop (T = 30) on the same workload, and profiles
-   51 iterations of each factored mode as in step 5.
+   51 iterations of each factored mode as in step 5. Factored waves: a
+   small wave (B = 3, one histogram a lane) card against CPU on numpy
+   draws in all three modes, each card lane against the card's single-lane
+   run (both under the margin rule: a flip must fall on a near tie); then
+   the factored main path as a wave of B = 8 releases with 8 histograms,
+   T = ``--T``, in exact, fast/flat and fast/marginal-IVF mode (each lane
+   below its uniform baseline, each lane's ledger equal to its preview,
+   K2's cluster route on the (8,) grid the only kernel launched, once an
+   iteration: the tail is a lookup in the probe's scores, no K6), and 51
+   profiled wave-iterations of each mode.
 8. Holds every kernel against its plain version again at the shapes the
    main paths gave it — K1 in `aug` mode over Q (the flat probe) and in
    `plain` mode over the IVF centroids (the IVF probe's first step), K5,
    K2 and K3 at the wave's shapes, K6 and K2's cluster route at the
-   factored path's, K2's three launches at U = 2**18 (`timing_only`) — and
+   factored path's (one lane, and the factored wave's (8,) grid), K2's
+   three launches at U = 2**18 (`timing_only`) — and
    times each with CUDA events, one replay at a time and over 200
    back-to-back replays, each behind a sleep queued on the stream so the
    host's graph launch is not counted; K2's, K3's, K4's, K7's and K9's rows
@@ -159,18 +175,20 @@ LANES = 8  # the serving tier's wave, src/repro/serve/release_service.py:218
 KERNELS = ("mips_topk", "ivf_probe", "mwem_step", "gather_score",
            "ivf_probe_batch", "mwem_step_batch", "gather_score_batch",
            "marginal_gather_score", "mwem_step:cluster",
+           "mwem_step_batch:cluster",
            "flash_attention", "flash_attention:decode", "ssd_scan",
            "mwu_update", "mwu_update:wave", "mwu_update:dual", "mips_topk:lp",
            "ivf_probe:lp", "gather_score_batch:lp", "mips_topk:dual",
            "gather_score:dual")
 # Timed and checked like a kernel of the list, but no main path runs them
-# (a factored wave is not ported; no path has U past K2's cluster reach, so
-# none runs its three launches; no path updates a row of 2**20 weights with
-# K7; no wave draws a quarter of its tail, which K3 reads past the 50 MB L2
-# while the paths' tails stay in it): their lines are logged, not in the
+# (no path has U past K2's cluster reach, so none runs its three launches;
+# no path updates a row of 2**20 weights with K7; no wave draws a quarter
+# of its tail, which K3 reads past the 50 MB L2 while the paths' tails stay
+# in it): their lines are logged, not in the result. K2's cluster route on
+# the (8,) grid at U = 2**15 is the factored wave's step, a row of the
 # result.
-TIMING_ONLY = ("mwem_step_batch:cluster", "mwem_step:multiblock",
-               "mwu_update:2^20", "gather_score_batch:dense")
+TIMING_ONLY = ("mwem_step:multiblock", "mwu_update:2^20",
+               "gather_score_batch:dense")
 REPLACES = {
     "mips_topk": "src/repro/kernels/mips_topk/mips_topk.py:97",
     "ivf_probe": "src/repro/kernels/ivf_probe/ivf_probe.py:120",
@@ -305,6 +323,46 @@ def replayed_ms(fn, n: int = 200) -> float:
     return a.elapsed_time(b) / n
 
 
+def kernel_name(name: str) -> str:
+    """A profiled kernel's bare name: no return type, namespace, template
+    arguments or parameters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].rsplit("::", 1)[-1]
+
+
+def port_kernels() -> set:
+    """The names of the port's hand-written kernels, read off their
+    sources (``__global__`` functions of ``csrc/*.cu``, ``*.cuh``)."""
+    import re
+
+    names = set()
+    for src in sorted((ROOT / "src/repro_torch/csrc").glob("*.cu*")):
+        names |= set(re.findall(
+            r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(?:void\s+)?(\w+)\s*\(", src.read_text()))
+    return names
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Median device time of ``fn`` by one CUDA-event pair around each of
+    ``reps`` calls, no graph: for a call too large to capture (a plain
+    version whose temporaries would stay in the graph's pool)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
 def stage_ms(fn, reps: int = 20, traces: int = 3) -> dict:
     """Mean device ms a call of ``fn`` spends in each kernel it launches,
     by kernel name, from a `torch.profiler` trace of ``reps`` calls: the
@@ -326,8 +384,7 @@ def stage_ms(fn, reps: int = 20, traces: int = 3) -> dict:
             torch.cuda.synchronize()
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-                name = name.split("(")[0].split("<")[0].rsplit("::", 1)[-1]
+                name = kernel_name(e.name)
                 out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
         if out:
             break
@@ -497,7 +554,9 @@ def profile_window(run, step_kernel: str = "mwem_step_cluster_kernel") -> tuple:
                  "window_ms_per_iter": window_ms,
                  "busy_share": busy_ms / window_ms,
                  "device_ops_per_iter": len(inside) / n_it,
-                 "top": [[name[:60], us / 1e3 / n_it] for name, us in top]}
+                 "top": [[name[:60], us / 1e3 / n_it] for name, us in top],
+                 "port_kernels": sorted({kernel_name(e.name) for e in gpu}
+                                        & port_kernels())}
 
 
 # ------------------------------------------- K1 and K5: their select's edges
@@ -723,6 +782,108 @@ def k4_edge_cases(dev, g, expect) -> None:
                          K4_KERNELS[(p["route"], p["select"])], expect)
     log(json.dumps({"k4_edge_modes": modes}))
     torch.cuda.synchronize()
+
+
+# ------------------------------ K4 and K3 past one launch's limits: groups
+
+def k4_past_limits(label, probe, cell_rows, cells, q, k, expect,
+                   flat=None) -> dict:
+    """K4 on a probe past `probe_plan`'s limits (more than MAX_PROBE cells
+    or MAX_SLOTS slots; at the full sizes — a reduced run's probe may fit
+    one launch), which the wrapper runs in the groups of `probe_groups`,
+    one launch each, merged in probe order: against its
+    plain version (scores within `f32_tol`, ids but for near ties, n_valid
+    exactly), repeated bit for bit, one launch a group; ``flat`` is a top-k
+    of an exhaustive search that the probe, covering every row, must also
+    match. Timed by CUDA-graph replays; its plain version, whose gather of
+    every probed cell is as large as the table, by CUDA events. Logs and
+    returns the row."""
+    import torch
+    from repro_torch.kernels.ivf_probe import ivf_probe_stream, ivf_probe_stream_ref
+    from repro_torch.kernels.ivf_probe import ops as ivf_ops
+    from repro_torch.kernels.ivf_probe.ops import probe_groups
+
+    nprobe, (nlist, cap, d) = probe.numel(), cell_rows.shape
+    groups = probe_groups(nprobe, cap)
+    before = ivf_probe_stream.launches
+    got = ivf_probe_stream(probe, cell_rows, cells, q, k)
+    n_launch = ivf_probe_stream.launches - before
+    again = ivf_probe_stream(probe, cell_rows, cells, q, k)
+    want = ivf_probe_stream_ref(probe, cell_rows, cells, q, k)
+    mag = max(float((cell_rows[c0:c0 + 64].nan_to_num(0.0).abs() @ q.abs()).max())
+              for c0 in range(0, nlist, 64))
+    tol = f32_tol(d, mag)
+    ok, err = same_topk(got[0], got[1], want[0], want[1], tol)
+    n_valid = int(got[2])
+    past = nprobe > ivf_ops.MAX_PROBE or nprobe * cap > ivf_ops.MAX_SLOTS
+    ok = ok and n_valid == int(want[2]) and n_launch == len(groups)
+    ok = ok and (len(groups) > 1) == past
+    ok = ok and all(torch.equal(a, b) for a, b in zip(got, again))
+    if flat is not None:
+        ok_f, err_f = same_topk(got[0], got[1], flat[0], flat[1], tol)
+        ok, err = ok and ok_f, max(err, err_f)
+    plain_ms = event_ms(lambda: ivf_probe_stream_ref(probe, cell_rows, cells,
+                                                     q, k))
+    ms = time_ms(lambda: ivf_probe_stream(probe, cell_rows, cells, q, k), reps=5)
+    b_ms, b_by = bound_ms(4.0 * n_valid * d + 4 * nprobe * (cap + 1) + 4 * d
+                          + 8 * k, 2.0 * n_valid * d)
+    row = {"name": f"ivf_probe:{label}", "nprobe": nprobe, "cap": cap, "d": d,
+           "k": k, "slots": nprobe * cap, "n_valid": n_valid,
+           "groups": len(groups), "launches": n_launch, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(json.dumps({"edge_row": row}))
+    expect(ok, f"ivf_probe {label} past the launch limits (nprobe={nprobe}, "
+           f"slots={nprobe * cap}, {len(groups)} groups, {n_launch} launches): "
+           f"max err {err} (tol {tol}), n_valid {n_valid}")
+    return row
+
+
+def k3_past_limit(Q, g, expect, lanes: int = 192) -> dict:
+    """K3 on a wave of ``lanes`` tails of `default_tail_cap(2m)` slots over
+    the dense Q — 192 × 1452 at m = 2**16, past MAX_SLOTS, so the wrapper
+    scores it in the lane groups of `score_groups`, one launch each:
+    against its plain version within `f32_tol` and, bit for bit, against
+    the lanes scored one by one; half the slots active at random. Timed as
+    `k4_past_limits` times K4. Logs and returns the row."""
+    import torch
+    from repro_torch.core.lazy_em import default_tail_cap
+    from repro_torch.kernels.mwem_step import (gather_score, gather_score_batch,
+                                               gather_score_batch_ref)
+    from repro_torch.kernels.mwem_step import ops as score_ops
+    from repro_torch.kernels.mwem_step.ops import score_groups
+
+    m, u = Q.shape
+    dev = Q.device
+    C = default_tail_cap(2 * m)
+    V = torch.randn(lanes, u, generator=g, device=dev) * 1e-3
+    aug = torch.randint(0, 2 * m, (lanes, C), generator=g, device=dev)
+    act = torch.rand(lanes, C, generator=g, device=dev) < 0.5
+    groups = score_groups(u, lanes, C)
+    before = gather_score_batch.launches
+    got = gather_score_batch(Q, V, aug, act)
+    n_launch = gather_score_batch.launches - before
+    want = gather_score_batch_ref(Q, V, aug, act)
+    err = float((got - want).abs().max())
+    tol = f32_tol(u, float((Q.abs() @ V.abs().T).max()))
+    ok = err <= tol and n_launch == len(groups)
+    ok = ok and (len(groups) > 1) == (lanes * C > score_ops.MAX_SLOTS)
+    ok = ok and float(got[~act].abs().sum()) == 0.0
+    ok = ok and all(torch.equal(gather_score(Q, V[b], aug[b], act[b]), got[b])
+                    for b in range(lanes))
+    n_act = int(act.sum())
+    ms = time_ms(lambda: gather_score_batch(Q, V, aug, act), reps=5)
+    plain_ms = event_ms(lambda: gather_score_batch_ref(Q, V, aug, act))
+    b_ms, b_by = bound_ms(4.0 * n_act * u + 4 * lanes * u + 13 * lanes * C,
+                          2.0 * n_act * u)
+    row = {"name": "gather_score_batch:192", "lanes": lanes, "C": C, "U": u,
+           "slots": lanes * C, "active": n_act, "groups": len(groups),
+           "launches": n_launch, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(json.dumps({"edge_row": row}))
+    expect(ok, f"gather_score_batch {lanes} × {C} past MAX_SLOTS "
+           f"({len(groups)} groups, {n_launch} launches): max err {err} "
+           f"(tol {tol}), lanes one by one bit for bit")
+    return row
 
 
 # ------------------------------------------------------ the LM serving tier
@@ -1780,6 +1941,12 @@ def lp_timing_rows(lp, dev, seed, expect) -> list:
                     torch.full((LANES, 1), -1.0, device=dev)], dim=1)
     probe = mips_topk(ivf._cents, xq, ivf.nprobe, "plain")[0]
     n_valid = int(ivf_probe_stream(probe, ivf._cell_rows, ivf._cells8, xq, k)[2])
+    # K4 past MAX_SLOTS: every cell of the LP's IVF (nprobe = nlist), so
+    # the probe is exhaustive and matches the flat top-k of the rows
+    k4_past_limits("lp all cells",
+                   torch.arange(ivf.nlist, dtype=torch.int32, device=dev),
+                   ivf._cell_rows, ivf._cells8, xq, k, expect,
+                   flat=mips_topk(Ab, xq, k, "plain"))
     y = runs["dual flat"].x_bar.new_full((DUAL_M,), 1.0 / DUAL_M)
     kd, capd = math.ceil(math.sqrt(DUAL_D)), default_tail_cap(DUAL_D)
     n_act_d = max(1, round(float(np.mean(runs["dual flat"].n_scored)) - kd))
@@ -1900,6 +2067,191 @@ def wide_ivf_waves(dev, seed, Qs_np, hs_np, expect, ops) -> None:
             expect(r.selected == one.selected and r.n_scored == one.n_scored,
                    f"IVF wave B={lanes}: lane {lane} differs from its "
                    f"single-lane run")
+
+
+SMALL_CARD, SMALL_CLIQUES = (3, 2, 4, 2, 3), [
+    (0, 1), (0, 2), (1, 3), (2, 4), (3, 4), (1,), (0, 2, 4), (1, 2, 3)]
+
+
+class ProbeLog:
+    """An index that keeps a copy of every probe it is asked — a (U,) ``v``
+    a single-lane `query`, a (B, U) block a factored wave's
+    `query_batch_with_scores` — and passes each call and attribute on."""
+
+    def __init__(self, index):
+        self.index, self.probes = index, []
+
+    def __getattr__(self, name):
+        return getattr(self.index, name)
+
+    def query(self, v, k):
+        self.probes.append(v.clone())
+        return self.index.query(v, k)
+
+    def query_batch_with_scores(self, V, k):
+        self.probes.append(V.clone())
+        return self.index.query_batch_with_scores(V, k)
+
+
+def same_under_margin(W, sel, ref_sel, probes, what, expect) -> int | None:
+    """One lane's selections from two routes, equal under the margin rule:
+    equal up to their first difference, which must fall between two
+    queries whose |scores| under that iteration's probe (``probes[t]``,
+    kept by `ProbeLog` in the ``ref_sel`` run) agree within float noise —
+    a near tie (for instance a binary 1-way marginal's two cells, whose
+    scores are exact opposites) that two orders of summation may rank
+    either way. Past it the two runs are not compared. Returns the first
+    differing iteration, or None."""
+    diff = [t for t, (a, b) in enumerate(zip(sel, ref_sel)) if a != b]
+    if not diff:
+        return None
+    t, a, b = diff[0], sel[diff[0]], ref_sel[diff[0]]
+    v = probes[t]
+    s = W.scores(v).abs().cpu()
+    tol = 2 * f32_tol(W.U, float(v.abs().sum()))
+    gap = abs(float(s[a]) - float(s[b]))
+    expect(gap <= tol, f"{what}: selections differ at t={t} ({a} against "
+           f"{b}, |score| gap {gap} > {tol}): no near tie explains it")
+    return t
+
+
+def small_factored_waves(dev, seed, expect) -> None:
+    """A small factored wave (B = 3 lanes, one histogram a lane) on the
+    card and on the CPU with the same numpy draws, in exact, fast/flat and
+    fast/marginal-IVF mode, and each card lane against the card's
+    single-lane `run_mwem` with its draws (whose tail K6 scores where the
+    wave looks it up): selections and n_scored equal under the margin rule
+    (`same_under_margin`; exact mode draws a Gumbel a query, so there they
+    must be equal), p_hat at rtol 1e-4 where no lane diverged."""
+    import torch
+    from repro_torch.core import MarginalWorkload, MWEMConfig, run_mwem, run_mwem_batch
+    from repro_torch.mips import FlatAbsIndex, MarginalIVFIndex
+
+    rng = np.random.default_rng([seed, 5])
+    hb = rng.dirichlet(np.full(144, 0.4), 3).astype(np.float32)
+    for kind in ("exact", "flat", "mivf"):
+        cfg = MWEMConfig(T=30, mode="exact" if kind == "exact" else "fast",
+                         n_records=2000)
+        pair = []  # (workload, index, result): the card's, then the CPU's
+        for where in (dev, torch.device("cpu")):
+            Wf = MarginalWorkload(SMALL_CARD, SMALL_CLIQUES, device=where)
+            make = {"exact": None, "flat": FlatAbsIndex,
+                    "mivf": MarginalIVFIndex}[kind]
+            index = ProbeLog(make(Wf, device=where)) if make else None
+            pair.append((Wf, index, run_mwem_batch(
+                Wf, hb, cfg, [NumpyDraws(seed + 40 + b) for b in range(3)],
+                index=index, device=where)))
+        (Wd, index, a), (Wc, index_c, b) = pair
+        diverged = False
+        for lane in range(3):
+            what = f"small factored {kind} wave, lane {lane}: card against CPU"
+            if index is None:
+                t = None
+                expect(np.array_equal(a.selected[lane], b.selected[lane]), what)
+            else:
+                t = same_under_margin(Wc, list(a.selected[lane]),
+                                      list(b.selected[lane]),
+                                      [V[lane] for V in index_c.probes], what,
+                                      expect)
+            diverged |= t is not None
+            expect(np.array_equal(a.n_scored[lane][:t], b.n_scored[lane][:t]),
+                   f"{what}: n_scored differ")
+        if not diverged:
+            expect(torch.allclose(a.p_hat.cpu(), b.p_hat, rtol=1e-4, atol=1e-7),
+                   f"small factored {kind} wave: card and CPU p_hat differ")
+        for lane, res in enumerate(a.unbatch()):
+            one_index = ProbeLog(index.index) if index is not None else None
+            one = run_mwem(Wd, hb[lane], cfg, NumpyDraws(seed + 40 + lane),
+                           index=one_index)
+            what = f"small factored {kind} wave: lane {lane} against its single-lane run"
+            if one_index is None:
+                t = None
+                expect(res.selected == one.selected, what)
+            else:
+                t = same_under_margin(Wd, res.selected, one.selected,
+                                      one_index.probes, what, expect)
+            expect(res.n_scored[:t] == one.n_scored[:t], f"{what}: n_scored differ")
+
+
+def factored_wave_path(args, dev, Wm, indices, expect, ops, launches) -> dict:
+    """The factored main path as a wave of `LANES` releases, one histogram
+    a lane (each drawn as the single-lane path's is, from its own seed), in
+    exact, fast/flat and fast/marginal-IVF mode at T = ``--T``: every lane
+    below its uniform baseline, every lane's ledger equal to its preview,
+    and the kernels counted exactly K2's cluster route on the (LANES,)
+    grid, once an iteration (no K6: the tail is looked up in the probe's
+    scores). Then 51 profiled wave-iterations of each mode, whose trace
+    must hold no hand-written kernel but K2's. Adds the runs' counts to
+    ``launches``; returns the waves and histograms."""
+    import torch
+    from repro_torch.core import (LaneDraws, MWEMConfig, PrivacyLedger,
+                                  release_cost, run_mwem_batch)
+
+    T, n_rec = args.T, args.n_records
+    hb = []
+    for b in range(LANES):
+        rng_b = np.random.default_rng([args.seed, 6, b])
+        logits = 2.0 * rng_b.standard_normal(Wm.U)
+        p_true = np.exp(logits - logits.max())
+        hb.append(rng_b.multinomial(n_rec, p_true / p_true.sum()) / n_rec)
+    hb = torch.as_tensor(np.stack(hb).astype(np.float32)).to(dev)
+    base = Wm.max_err(hb, torch.full((LANES, Wm.U), 1.0 / Wm.U, device=dev))
+    base = base.cpu().numpy()
+    want = {"mwem_step_batch", "mwem_step_batch:multiblock",
+            "mwem_step_batch:cluster"}
+    waves = {"h": hb}
+    for kind, index in indices.items():
+        cfg = MWEMConfig(eps=1.0, delta=1e-3, T=T, n_records=n_rec,
+                         mode="exact" if kind == "exact" else "fast")
+        draws = LaneDraws.seeded([args.seed + 400 + b for b in range(LANES)], dev)
+        ledgers = [PrivacyLedger() for _ in range(LANES)]
+        torch.cuda.synchronize()
+        reset_counts(ops)
+        t0 = time.perf_counter()
+        res = run_mwem_batch(Wm, hb, cfg, draws, index=index, ledgers=ledgers)
+        wall = time.perf_counter() - t0
+        counts = read_counts(ops)
+        for name, c in counts.items():
+            launches[name] += c
+        waves[kind] = res
+        preview = PrivacyLedger().preview(*release_cost(cfg, Wm.m, Wm.U, index))
+        errs = res.final_errors
+        log(json.dumps({"factored_wave": kind, "lanes": LANES, "T": T,
+                        "final_errors": errs.tolist(),
+                        "uniform_errors": base.tolist(),
+                        "mean_n_scored": float(res.n_scored.mean()),
+                        "overflow_counts": res.overflow_counts.tolist(),
+                        "distinct_selections": len({tuple(r) for r in res.selected}),
+                        "preview": preview, "wall_s": wall,
+                        "device_s": res.total_seconds,
+                        "ms_per_iter": 1e3 * res.total_seconds / T,
+                        "launches": counts}))
+        expect(bool(np.isfinite(errs).all()) and bool((errs < base).all()),
+               f"factored wave {kind}: errors {errs} not all below uniform "
+               f"{base.tolist()}")
+        expect(bool(torch.isfinite(res.p_hat).all())
+               and tuple(res.p_hat.shape) == (LANES, Wm.U)
+               and bool(torch.allclose(res.p_hat.sum(1), torch.ones(
+                   LANES, device=dev), atol=1e-4)),
+               f"factored wave {kind}: p_hat malformed")
+        expect(all(led.composed() == preview for led in ledgers),
+               f"factored wave {kind}: a lane's ledger differs from {preview}")
+        expect({n for n, c in counts.items() if c} == want
+               and all(counts[n] == T for n in want),
+               f"factored wave {kind}: launched {counts}, not K2's cluster "
+               f"route once an iteration alone")
+    for kind, index in indices.items():
+        cfg = MWEMConfig(T=51, n_records=n_rec,
+                         mode="exact" if kind == "exact" else "fast")
+        res, prof = profile_window(lambda: run_mwem_batch(
+            Wm, hb, cfg, LaneDraws.seeded(range(args.seed + 500,
+                                                args.seed + 500 + LANES), dev),
+            index=index))
+        log(json.dumps({"profile": f"factored wave {kind}", "lanes": LANES,
+                        **prof, "event_iter_ms": 1e3 * res.total_seconds / 51}))
+        expect(prof["port_kernels"] == ["mwem_step_cluster_kernel"],
+               f"factored wave {kind}: the trace holds {prof['port_kernels']}")
+    return waves
 
 
 def main() -> int:
@@ -2285,8 +2637,7 @@ def main() -> int:
     log(f"factored edge shapes: {'ok' if not failures else 'FAILED'}")
 
     # ------------------------------- small factored release, card vs CPU
-    small_card, small_cl = (3, 2, 4, 2, 3), [
-        (0, 1), (0, 2), (1, 3), (2, 4), (3, 4), (1,), (0, 2, 4), (1, 2, 3)]
+    small_card, small_cl = SMALL_CARD, SMALL_CLIQUES
     rng_f = np.random.default_rng([args.seed, 3])
     h_small = rng_f.dirichlet(np.full(144, 0.4)).astype(np.float32)
     for kind in ("exact", "flat", "mivf"):
@@ -2307,6 +2658,8 @@ def main() -> int:
                 and torch.allclose(a.p_hat.cpu(), b.p_hat, rtol=1e-4, atol=1e-7))
         expect(same, f"small factored {kind} release: card and CPU runs differ")
     log(f"small factored releases: {'ok' if not failures else 'FAILED'}")
+    small_factored_waves(dev, args.seed, expect)
+    log(f"small factored waves: {'ok' if not failures else 'FAILED'}")
 
     # ---------------------------------------------------- main path
     m, T, n_rec = 2 ** args.m_log2, args.T, args.n_records
@@ -2324,6 +2677,26 @@ def main() -> int:
     log(f"ivf build: {time.perf_counter() - t0:.1f} s (nlist={ivf.nlist}, "
         f"cap={ivf.cap}, nprobe={ivf.nprobe})")
     del Q_np
+    # K4 past both launch limits and K3 past MAX_SLOTS: every cell of the
+    # main IVF (266432 slots, an exhaustive probe that must match the flat
+    # aug top-k), 5000 cells (past MAX_PROBE), a 192-lane tail wave over Q
+    v_lim = h - torch.full((U,), 1.0 / U, device=dev)
+    k_lim = math.ceil(math.sqrt(m))
+    k4_past_limits("all cells",
+                   torch.arange(ivf.nlist, dtype=torch.int32, device=dev),
+                   ivf._cell_rows, ivf._cells8, v_lim, k_lim, expect,
+                   flat=mips_topk(Q, v_lim, k_lim, "aug"))
+    rows_5k = randn(5000, 8, 64)
+    ids_5k = torch.arange(5000 * 8, dtype=torch.int32, device=dev).reshape(5000, 8)
+    pad_5k = torch.rand(5000, 8, generator=g, device=dev) < 0.3
+    ids_5k[pad_5k] = -1
+    rows_5k[pad_5k] = math.nan
+    k4_past_limits("5000 cells", torch.randperm(5000, generator=g, device=dev).int(),
+                   rows_5k, ids_5k, randn(64), 100, expect)
+    del rows_5k, ids_5k, pad_5k
+    k3_past_limit(Q, g, expect)
+    torch.cuda.synchronize()
+    log(f"K4 and K3 past their launch limits: {'ok' if not failures else 'FAILED'}")
     flat = FlatAbsIndex(Q, device=dev)
     launches = dict.fromkeys(read_counts(ops), 0)
     run_counts = {}
@@ -2532,6 +2905,12 @@ def main() -> int:
         log(json.dumps({"profile": f"factored {kind}", **prof, "event_iter_ms":
                         1e3 * float(np.mean(res.iter_seconds[1:]))}))
 
+    # ------------- factored main path as a wave of LANES histograms
+    fwaves = factored_wave_path(
+        args, dev, Wm, {"exact": None, "flat": FlatAbsIndex(Wm, device=dev),
+                        "mivf": mivf}, expect, ops, launches)
+    log(f"factored waves: {'ok' if not failures else 'FAILED'}")
+
     # ------------------------------- kernels at the main path's shapes
     p = torch.softmax(torch.zeros(U, device=dev), 0)
     v = h - runs["flat"].p_hat
@@ -2682,12 +3061,14 @@ def main() -> int:
                                                           device=dev)
     ps_f = fruns["mivf"].p_hat.clone()
     eta_f = math.sqrt(math.log(Wm.U) / T)
-    rows_fb = Wm.rows(torch.as_tensor(fruns["mivf"].selected[-LANES:],
-                                      device=dev))
-    sel_fb = torch.arange(LANES, device=dev)
+    # the factored wave's step: its marginal-IVF wave's last winners' rows
+    # as a (LANES, U) table, per-lane h
+    rows_fb, sel_fb = Wm.winner_table(torch.as_tensor(
+        fwaves["mivf"].selected[:, -1], device=dev))
+    h_fb = fwaves["h"]
     lw_fb = torch.zeros(LANES, Wm.U, device=dev)
     p_fb = torch.softmax(lw_fb, 1)
-    ps_fb = ps_f.expand(LANES, -1).contiguous()
+    ps_fb = fwaves["mivf"].p_hat.contiguous()
     noise_fb = torch.full((LANES,), 1e-3, device=dev)
     n_fast = sum(fcounts[kind]["marginal_gather_score"] for kind in ("flat", "mivf"))
     cells_f = Wm.rows(aug_f[act_f] % Wm.m)  # (n_act_f, U) indicators
@@ -2718,11 +3099,11 @@ def main() -> int:
          None, 4.0 * 8 * Wm.U + 16, 12.0 * Wm.U),
         ("mwem_step_batch:cluster", "mwem_step_batch:cluster",
          "cluster:%d" % plan(Wm.U, LANES)[1], launches["mwem_step_batch:cluster"],
-         lambda: mwem_step_batch(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_m,
+         lambda: mwem_step_batch(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_fb,
                                  noise_fb, rule="hardt", eta=eta_f),
-         lambda: mwem_step_batch_ref(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_m,
+         lambda: mwem_step_batch_ref(lw_fb, p_fb, ps_fb, rows_fb, sel_fb, h_fb,
                                      noise_fb, rule="hardt", eta=eta_f),
-         None, LANES * (4.0 * 7 * Wm.U + 12) + 4.0 * Wm.U, LANES * 12.0 * Wm.U),
+         None, LANES * (4.0 * 8 * Wm.U + 12), LANES * 12.0 * Wm.U),
         ("mwem_step:multiblock", "mwem_step:multiblock", plan(u3, 1)[0],
          launches["mwem_step:multiblock"] - launches["mwem_step:cluster"],
          lambda: mwem_step(lw3, p3, ps3, q3, id3, h3, noise, rule="hardt",

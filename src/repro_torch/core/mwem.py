@@ -36,6 +36,16 @@ scored by one `gather_score_batch` launch, and `mwem_step_batch` (K2 on a
 (B,) grid). The overflow flags of the wave are read back once an
 iteration, and only the lanes that overflowed redo the selection
 exhaustively, each on its own fallback stream.
+
+A wave over a factored `MarginalWorkload` takes the reference's route for
+indices with full scores (its vmapped core with
+``query_in_graph_with_scores``): the index's `query_batch_with_scores`
+gives each lane's top-k and all m signed scores, read off one pass of the
+workload's segment sums (or implicit-row product) over the (B, U) block;
+the tail and the overflow redo look those scores up, so no tail kernel
+runs (the single-lane path scores its tail with K6). The B winners' rows
+are materialized as a (B, U) table for `mwem_step_batch`. In exact mode
+the oracle is the workload's implicit-row product over the block.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ from repro_torch.core.em import exact_em
 from repro_torch.core.lazy_em import default_tail_cap, lazy_em_from_topk
 from repro_torch.core.queries import max_error
 from repro_torch.core.rng import Draws, LaneDraws, TorchDraws
-from repro_torch.core.workload import as_workload
+from repro_torch.core.workload import as_workload, aug_decompose
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mwem_step import (gather_score, gather_score_batch,
                                            marginal_gather_score, mwem_step,
@@ -360,6 +370,25 @@ class MWEMPendingBatch:
     marks: Optional[tuple]       # CUDA events around the loop, on the card
 
 
+def _check_wave_index(W, index) -> None:
+    """A fast wave's index must probe a whole wave of ``W``: `query_batch`
+    over a dense workload, `query_batch_with_scores` over a factored one
+    (and be built over that very workload)."""
+    name = type(index).__name__
+    if W.is_dense:
+        if not getattr(index, "supports_batch_probe", False):
+            raise ValueError(f"{name} cannot probe a wave: the batch needs an "
+                             "index with query_batch")
+        return
+    if not getattr(index, "has_full_scores", False):
+        raise ValueError(f"{name} has no factored wave probe: a wave over a "
+                         "MarginalWorkload needs its FlatAbsIndex or "
+                         "MarginalIVFIndex (query_batch_with_scores)")
+    if index.workload is not W:
+        raise ValueError(f"{name} was built over another workload than the "
+                         "wave's")
+
+
 def launch_mwem_batch(Q, h, cfg: MWEMConfig, draws, index=None,
                       device=None) -> MWEMPendingBatch:
     """Enqueue a wave of B lanes — the launch half of `run_mwem_batch`.
@@ -372,18 +401,13 @@ def launch_mwem_batch(Q, h, cfg: MWEMConfig, draws, index=None,
     """
     dev = resolve_device(device)
     W = as_workload(Q, dev)
-    if not W.is_dense:
-        raise ValueError("a wave over a factored MarginalWorkload is not "
-                         "ported yet (ROADMAP.md, Queue 1: factored waves); "
-                         "run its lanes one by one with run_mwem")
     h = torch.as_tensor(h, dtype=torch.float32, device=dev)
     m, U = W.m, W.U
     cal = _calibrate(cfg, m, U)
     c_idx = _check_fast_index(cfg, index)
     _run_device(W, index, cfg, dev)
-    if cfg.mode == "fast" and not getattr(index, "supports_batch_probe", False):
-        raise ValueError(f"{type(index).__name__} cannot probe a wave: the "
-                         "batch needs an index with query_batch")
+    if cfg.mode == "fast":
+        _check_wave_index(W, index)
     if not isinstance(draws, LaneDraws):
         draws = LaneDraws(draws)
     B = len(draws)
@@ -412,12 +436,21 @@ def launch_mwem_batch(Q, h, cfg: MWEMConfig, draws, index=None,
         if cfg.mode == "exact":
             sel = exact_select(draws.exhaustive_gumbel(t, m, dev), v)
         else:
-            aug_idx, raw = index.query_batch(v, cal.k)     # (B, k) each
-            out = lazy_em_from_topk(
-                draws, t, aug_idx, raw * cal.scale, 2 * m,
-                score_fn=lambda idx, active: (
-                    gather_score_batch(W.Q, v, idx, active) * cal.scale),
-                tail_cap=cal.tail_cap, margin_slack=slack)
+            if W.is_dense:
+                aug_idx, raw = index.query_batch(v, cal.k)     # (B, k) each
+                S = None
+
+                def score_fn(idx, active):
+                    return gather_score_batch(W.Q, v, idx, active) * cal.scale
+            else:  # the probe's (B, m) signed scores serve tail and redo
+                aug_idx, raw, S = index.query_batch_with_scores(v, cal.k)
+
+                def score_fn(idx, active):
+                    base, sign = aug_decompose(idx, m)
+                    return S.gather(1, base) * sign * cal.scale
+            out = lazy_em_from_topk(draws, t, aug_idx, raw * cal.scale, 2 * m,
+                                    score_fn=score_fn, tail_cap=cal.tail_cap,
+                                    margin_slack=slack)
             sel = torch.remainder(out.index, m)
             n_scored = out.n_scored
             over_t[t] = out.overflow
@@ -425,16 +458,22 @@ def launch_mwem_batch(Q, h, cfg: MWEMConfig, draws, index=None,
             redo = [b for b, o in enumerate(out.overflow.tolist()) if o]
             if redo:
                 lanes = torch.tensor(redo, dtype=torch.int64, device=dev)
-                fallback = exact_select(draws.fallback_gumbel(t, m, dev, redo),
-                                        v.index_select(0, lanes))
+                gumbels = draws.fallback_gumbel(t, m, dev, redo)
+                if S is None:
+                    fallback = exact_select(gumbels, v.index_select(0, lanes))
+                else:
+                    fallback = exact_em(gumbels, S.index_select(0, lanes).abs(),
+                                        cal.eps_em, cal.sensitivity)
                 sel = sel.index_put((lanes,), fallback)
                 n_scored = n_scored.index_fill(0, lanes, m)
             n_scored_t[t] = n_scored
         sel_t[t] = sel
         noise = _measure_noise(draws, t, cfg.update_rule, cal.lap_scale, dev,
                                (B,))
-        log_w, p, p_sum = mwem_step_batch(log_w, p, p_sum, W.Q, sel, h, noise,
-                                          rule=cfg.update_rule, eta=cal.eta)
+        rows, row_ids = W.winner_table(sel)
+        log_w, p, p_sum = mwem_step_batch(log_w, p, p_sum, rows, row_ids, h,
+                                          noise, rule=cfg.update_rule,
+                                          eta=cal.eta)
         if cfg.eval_every and (t + 1) % cfg.eval_every == 0:
             errors.append(max_error(W, h, p_sum / (t + 1)))
     if marks is not None:
@@ -490,16 +529,21 @@ def run_mwem_batch(Q, h, cfg: MWEMConfig, draws, index=None,
     """Run a wave of B (Fast-)MWEM releases together.
 
     Args:
-      Q: (m, U) query matrix (array, tensor or `DenseWorkload`).
+      Q: (m, U) query matrix (array, tensor or `DenseWorkload`), or a
+        factored `MarginalWorkload` on the run's device.
       h: shared (U,) histogram, or (B, U) with one histogram a lane.
       cfg: engine configuration, the same for every lane.
       draws: a `LaneDraws`, or a sequence of B `Draws` or
         `torch.Generator`s — one source a lane. Lane b makes exactly the
         draws a single-lane `run_mwem` fed lane b's source makes, so it
         selects the same queries (the IVF wave probe ranks exact score
-        ties in slot order, see `repro_torch.kernels.ivf_probe.ref`).
+        ties in slot order, see `repro_torch.kernels.ivf_probe.ref`; a
+        factored lane looks its tail up in the probe's scores where the
+        single lane scores it with K6, so a near tie may go either way).
       index: in fast mode, an index with ``query_batch(V, k)``
-        (`FlatAbsIndex`, `IVFIndex`) on the run's device.
+        (`FlatAbsIndex`, `IVFIndex`) on the run's device; over a
+        `MarginalWorkload`, its `FlatAbsIndex` or `MarginalIVFIndex`
+        (``query_batch_with_scores``).
       ledgers: optional list of B `PrivacyLedger`s, one a lane, each
         charged with that lane's `release_cost` bundle (``None`` entries
         skip a lane). The result's ``ledger`` is one run's.

@@ -63,8 +63,8 @@ class DenseWorkload:
         return self.Q.device
 
     def winner_table(self, sel: torch.Tensor):
-        """``(row table, row id)`` the fused step reads the winner from:
-        the whole matrix and ``sel`` itself."""
+        """``(row table, row ids)`` the fused step reads the winners from:
+        the whole matrix and ``sel`` itself (one id, or (B,) for a wave)."""
         return self.Q, sel
 
     def scores(self, v: torch.Tensor) -> torch.Tensor:
@@ -238,21 +238,29 @@ class MarginalWorkload:
         return self.rows(torch.as_tensor(j, device=self.device).reshape(1))[0]
 
     def winner_table(self, sel: torch.Tensor):
-        """``(row table, row id)`` the fused step reads the winner from:
-        the winner's implicit row materialized as a (1, U) table, and id
-        0 (the reference's `mwu_apply` route)."""
-        return self.rows(sel.reshape(1)), torch.zeros_like(sel)
+        """``(row table, row ids)`` the fused step reads the winners from:
+        their implicit rows materialized as a (B, U) table — (1, U) for one
+        winner — and ids ``arange(B)`` in ``sel``'s shape (the reference's
+        `mwu_apply` route)."""
+        flat = sel.reshape(-1)
+        return self.rows(flat), torch.arange(
+            flat.numel(), device=flat.device).reshape(sel.shape)
 
     # -- scoring --------------------------------------------------------
+    # Each takes one probe ``v`` (U,) or a (B, U) block of probes, one a
+    # lane, and then returns a leading lane axis; a block builds each cell
+    # map once for all its lanes.
     def scores(self, v: torch.Tensor) -> torch.Tensor:
         """All m signed scores (the exhaustive oracle): implicit rows times
-        ``v``, one (score_block, U) @ (U,) product a block of query ids.
+        ``v``, one (score_block, U) @ (U,) product a block of query ids —
+        (score_block, U) @ (U, B) for a (B, U) block of probes, (B, m) out.
 
         A block of consecutive ids spans a few consecutive cliques, so
         their cell maps are built once each and a row picks its clique's
         — the very rows `rows` builds, with a fraction of the arithmetic.
         """
         B = self.score_block
+        vt = v.T if v.dim() == 2 else v
         out = []
         for lo in range(0, self.m, B):
             hi = min(lo + B, self.m)
@@ -262,39 +270,50 @@ class MarginalWorkload:
                                  self.cl_stride[c0:c1])
             rel = self._qc64[lo:hi] - c0
             rows = (cm[rel] == self.q_offset[lo:hi, None]).to(torch.float32)
-            out.append(rows @ v)
-        return torch.cat(out)
+            out.append(rows @ vt)
+        return torch.cat(out).T.contiguous() if v.dim() == 2 else torch.cat(out)
 
     def marginal_tables(self, v: torch.Tensor) -> torch.Tensor:
         """(n_cliques, max_cells) per-clique marginals of ``v`` by segment
-        sums over ``clique_chunk`` cliques at a time; pad cells stay 0."""
+        sums over ``clique_chunk`` cliques at a time — (B, n_cliques,
+        max_cells) for a (B, U) block; pad cells stay 0."""
         v = v.to(torch.float32)
+        lanes = tuple(v.shape[:-1])
         tabs = []
         for lo in range(0, self.n_cliques, self.clique_chunk):
             hi = min(lo + self.clique_chunk, self.n_cliques)
             cm = self._cell_maps(self.cl_dstride[lo:hi], self.cl_card[lo:hi],
                                  self.cl_stride[lo:hi]).to(torch.int64)
-            tab = torch.zeros((hi - lo, self.max_cells), dtype=torch.float32,
-                              device=self.device)
-            tabs.append(tab.scatter_add_(1, cm, v.expand(hi - lo, -1)))
-        return torch.cat(tabs)
+            shape = (*lanes, hi - lo, self.U)
+            tab = torch.zeros((*lanes, hi - lo, self.max_cells),
+                              dtype=torch.float32, device=self.device)
+            tabs.append(tab.scatter_add_(-1, cm.expand(shape),
+                                         v.unsqueeze(-2).expand(shape)))
+        return torch.cat(tabs, -2)
 
     def answer_all(self, v: torch.Tensor) -> torch.Tensor:
         """All m answers ``Q v`` from the clique tables: each domain point
         is touched once a clique, not once a query."""
-        return self.marginal_tables(v)[self._qc64, self._qo64]
+        return self.table_answers(self.marginal_tables(v))
+
+    def table_answers(self, tabs: torch.Tensor) -> torch.Tensor:
+        """Every query's answer read off `marginal_tables`' output: (m,)
+        from (n_cliques, max_cells), (B, m) from a (B, …) block."""
+        return tabs[..., self._qc64, self._qo64]
 
     def probe_scores(self, v: torch.Tensor) -> torch.Tensor:
-        """Full (m,) signed scores for the exhaustive probe: the oracle's
-        implicit-row product while ``m ≤ score_block``, the segment sums
-        past it (as the reference does)."""
+        """Full (m,) signed scores for the exhaustive probe — (B, m) for a
+        (B, U) block: the oracle's implicit-row product while ``m ≤
+        score_block``, the segment sums past it (as the reference does)."""
         if self.m <= self.score_block:
             return self.scores(v)
         return self.answer_all(v)
 
     def max_err(self, h: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-        """‖Q(p − h)‖_∞ without densification (Eq. 1)."""
-        return torch.max(torch.abs(self.answer_all(p - h)))
+        """‖Q(p − h)‖_∞ without densification (Eq. 1); (B, U) densities
+        (and a shared (U,) or per-lane (B, U) ``h``) give one error a
+        lane."""
+        return torch.amax(torch.abs(self.answer_all(p - h)), dim=-1)
 
     def clique_abs_err(self, v: torch.Tensor) -> torch.Tensor:
         """(n_cliques,) max |cell| a clique, pad cells masked — the

@@ -7,7 +7,10 @@ cell-grouped table and keeps the top-k, on the route `probe_plan` picks
 a thread a slot), selecting in its last block when the probed cells hold at
 most `CACHE_KEYS` slots. `ivf_probe_topk` is the whole probe: the centroid
 top-nprobe through `mips_topk` (K1, ``plain`` mode), then K4 — the cell ids
-never leave the device.
+never leave the device. One K4 launch takes at most `MAX_PROBE` cells and
+`MAX_SLOTS` slots (`probe_plan`); a larger probe runs in groups of
+consecutive probed cells (`probe_groups`), one launch each, merged in
+probe order, so K4 takes any probe the reference takes.
 
 `ivf_probe_stream_batch` is kernel K5 (same source): a wave of B probes
 over the deduplicated union of their cells, each unique cell read once
@@ -29,7 +32,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ivf_probe.ref import (batch_probe_slots,
+from repro_torch.kernels.ivf_probe.ref import (_pad_topk, batch_probe_slots,
                                                ivf_probe_stream_batch_ref,
                                                ivf_probe_stream_ref)
 from repro_torch.kernels.mips_topk.ops import MAX_K, mips_topk
@@ -126,13 +129,58 @@ def _wave_plan(n_slots, cap, d, lanes, device_index) -> tuple:
     return tuple(zip(keys, out))
 
 
+def probe_groups(nprobe: int, cap: int) -> list:
+    """The launches a probe of ``nprobe`` cells of ``cap`` slots takes:
+    ``(first, last, slot_lo, slot_hi)`` a group — a run of consecutive
+    probed cells ``probe[first:last]`` that fits `probe_plan`'s limits
+    (at most `MAX_PROBE` cells and `MAX_SLOTS` slots), or, when one cell
+    alone holds more than `MAX_SLOTS` slots, a range of that cell's slots.
+    A probe within the limits is one group, the whole of it."""
+    if cap <= MAX_SLOTS:
+        step = min(MAX_PROBE, MAX_SLOTS // cap)
+        return [(i, min(i + step, nprobe), 0, cap)
+                for i in range(0, nprobe, step)]
+    return [(i, i + 1, lo, min(lo + MAX_SLOTS, cap))
+            for i in range(nprobe) for lo in range(0, cap, MAX_SLOTS)]
+
+
 def ivf_probe_stream(probe: torch.Tensor, cell_rows: torch.Tensor,
                      cells: torch.Tensor, q: torch.Tensor, k: int):
     """Top-k over the probed cells → ``(ids int32 (k,), scores f32 (k,),
-    n_valid int32 ())``; see `ref.ivf_probe_stream_ref` for the contract."""
+    n_valid int32 ())``; see `ref.ivf_probe_stream_ref` for the contract.
+
+    A probe past `probe_plan`'s limits runs in the groups of
+    `probe_groups`, one K4 call each (on either device), and their top-ks
+    merge by one stable descending sort of their concatenation in group
+    order: ties keep the probe-then-slot order and the −1 pads stay last.
+    A group that is a slot range of one cell reads that cell's id on the
+    host (a cell of more than `MAX_SLOTS` slots: one sync a range)."""
     nlist, cap, d = cell_rows.shape
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} must lie in [1, {MAX_K}]")
+    groups = probe_groups(probe.shape[0], cap)
+    if len(groups) <= 1:
+        return _probe_stream(probe, cell_rows, cells, q, k)
+    outs = []
+    for first, last, lo, hi in groups:
+        kg = min(k, (last - first) * (hi - lo))  # no more than the group's slots
+        if (lo, hi) == (0, cap):
+            outs.append(_probe_stream(probe[first:last], cell_rows, cells, q, kg))
+        else:
+            c = int(probe[first])
+            outs.append(_probe_stream(probe.new_zeros(1),
+                                      cell_rows[c, lo:hi].unsqueeze(0),
+                                      cells[c, lo:hi].unsqueeze(0), q, kg))
+    ids, scores, n_valid = zip(*outs)
+    top, pos = torch.sort(torch.cat(scores), descending=True, stable=True)
+    ids, top = _pad_topk(torch.cat(ids)[pos[:k]], top[:k], k)
+    return ids, top, torch.stack(n_valid).sum().to(torch.int32)
+
+
+def _probe_stream(probe, cell_rows, cells, q, k):
+    """One K4 call within `probe_plan`'s limits (the plain version on the
+    CPU)."""
+    nlist, cap, d = cell_rows.shape
     dev = _build.dispatch_device(probe, cell_rows, cells, q)
     if dev.type == "cpu":
         return ivf_probe_stream_ref(probe, cell_rows, cells, q, k)

@@ -14,7 +14,9 @@ of them that took one cluster launch also in ``launches_cluster``.
 all B lanes' tails in one K3 launch, on the route `score_plan(U)` picks:
 ``narrow`` (a thread a candidate, U ≤ `NARROW_U`) or ``split`` (each row
 cut into `SEG`-float segments, the active (slot, segment) items shared
-evenly among warps, per-segment partials in a scratch buffer). K6 walks
+evenly among warps, per-segment partials in a scratch buffer); a split
+launch scores at most `MAX_SLOTS` slots, so a larger call runs in lane or
+column groups (`score_groups`), one launch each. K6 walks
 only its candidate's cell, from the workload's `walk_table`, built on the
 workload's first K6 call and kept while the workload lives. CPU tensors
 run the plain versions of `ref`.
@@ -44,7 +46,7 @@ CHUNK = 2048      # three-launch route: elements a block; mwem_step_chunk()
 MAX_LANES = 65535  # lanes of the three-launch route (a grid row each)
 NARROW_U = 32     # K3: most U of the narrow route; gather_score_narrow_u()
 SEG = 2048        # K3 split route: floats a segment; gather_score_seg()
-MAX_SLOTS = 262144  # K3 split route: most lanes × C slots; gather_score_max_slots()
+MAX_SLOTS = 262144  # K3 split route: most lanes × C slots a launch; gather_score_max_slots()
 MAX_K = 32        # K6: attributes a clique; marginal_gather_score_max_k()
 WALK_COLS = 6     # K6: ints a walk-table column; marginal_gather_score_walk_cols()
 
@@ -225,8 +227,8 @@ def _launch_score(q_rows, V, aug_idx, active, dev):
         _build.require("active", active, torch.bool, shape=(lanes, C), device=dev)
     route, nseg = score_plan(U)
     if route == "split" and lanes * C > MAX_SLOTS:
-        raise ValueError(f"gather_score scores at most {MAX_SLOTS} slots a call "
-                         f"past U = {NARROW_U}, got {lanes} × {C}")
+        raise ValueError(f"gather_score scores at most {MAX_SLOTS} slots a "
+                         f"launch past U = {NARROW_U}, got {lanes} × {C}")
     lib = _lib()
     out = torch.empty((lanes, C), dtype=torch.float32, device=dev)
     ws = scratch = None
@@ -245,16 +247,55 @@ def _launch_score(q_rows, V, aug_idx, active, dev):
     return out
 
 
+def score_groups(U: int, lanes: int, C: int) -> list:
+    """The launches K3 takes for ``lanes`` × ``C`` slots of rows of U
+    floats: ``(lane_lo, lane_hi, col_lo, col_hi)`` a group. The split route
+    scores at most `MAX_SLOTS` slots a launch, so a larger call runs in
+    groups of whole lanes that fit, or, when one lane alone holds more than
+    `MAX_SLOTS` slots, in column ranges of each lane; the narrow route and
+    a call within the limit are one group, the whole of it. Each slot's
+    score depends on its own row and lane only, so the groups' outputs put
+    together equal the whole call's bit for bit."""
+    if score_plan(U)[0] == "narrow" or lanes * C <= MAX_SLOTS:
+        return [(0, lanes, 0, C)]
+    if C <= MAX_SLOTS:
+        step = MAX_SLOTS // C
+        return [(b, min(b + step, lanes), 0, C) for b in range(0, lanes, step)]
+    return [(b, b + 1, c, min(c + MAX_SLOTS, C))
+            for b in range(lanes) for c in range(0, C, MAX_SLOTS)]
+
+
+def _grouped(fn, q_rows, V, aug_idx, active):
+    """``fn`` (one launch's call over (lanes, C) blocks) on each group of
+    `score_groups`, the outputs put back in their (lanes, C) places."""
+    lanes, C = aug_idx.shape
+    groups = score_groups(q_rows.shape[1], lanes, C)
+    if len(groups) == 1:
+        return fn(q_rows, V, aug_idx, active)
+    out = torch.empty((lanes, C), dtype=torch.float32, device=aug_idx.device)
+    for b0, b1, c0, c1 in groups:
+        out[b0:b1, c0:c1] = fn(
+            q_rows, V[b0:b1], aug_idx[b0:b1, c0:c1].contiguous(),
+            None if active is None else active[b0:b1, c0:c1].contiguous())
+    return out
+
+
 def gather_score(q_rows, v, aug_idx, active=None):
     """``sign · ⟨q_rows[j % m], v⟩`` for the (C,) augmented ids ``aug_idx``;
-    slots whose ``active`` flag is False are not read and score 0."""
-    dev = _build.dispatch_device(q_rows, v, aug_idx)
-    if dev.type == "cpu":
-        return gather_score_ref(q_rows, v, aug_idx, active)
-    out = _launch_score(q_rows, v.unsqueeze(0), aug_idx.unsqueeze(0),
-                        None if active is None else active.unsqueeze(0), dev)
-    gather_score.launches += 1
-    return out.squeeze(0)
+    slots whose ``active`` flag is False are not read and score 0. Past
+    `MAX_SLOTS` slots on the split route the tail is scored in column
+    groups (`score_groups`), one launch each."""
+    def one(q_rows, V, aug, act):
+        dev = _build.dispatch_device(q_rows, V, aug)
+        if dev.type == "cpu":
+            return gather_score_ref(q_rows, V[0], aug[0],
+                                    None if act is None else act[0])[None]
+        out = _launch_score(q_rows, V, aug, act, dev)
+        gather_score.launches += 1
+        return out
+
+    return _grouped(one, q_rows, v.unsqueeze(0), aug_idx.unsqueeze(0),
+                    None if active is None else active.unsqueeze(0)).squeeze(0)
 
 
 gather_score.launches = 0
@@ -262,15 +303,19 @@ gather_score.launches = 0
 
 def gather_score_batch(q_rows, V, aug_idx, active=None):
     """K3 over a wave: ``out[b, c] = sign · ⟨q_rows[j % m], V[b]⟩`` for
-    ``j = aug_idx[b, c]``, all B·C candidates in one launch; inactive
-    slots are not read and score 0. Lane b equals `gather_score` on its
-    row."""
-    dev = _build.dispatch_device(q_rows, V, aug_idx)
-    if dev.type == "cpu":
-        return gather_score_batch_ref(q_rows, V, aug_idx, active)
-    out = _launch_score(q_rows, V, aug_idx, active, dev)
-    gather_score_batch.launches += 1
-    return out
+    ``j = aug_idx[b, c]``, all B·C candidates in one launch up to
+    `MAX_SLOTS` slots on the split route and in lane (or column) groups of
+    `score_groups` past it, one launch each; inactive slots are not read
+    and score 0. Lane b equals `gather_score` on its row."""
+    def one(q_rows, V, aug, act):
+        dev = _build.dispatch_device(q_rows, V, aug)
+        if dev.type == "cpu":
+            return gather_score_batch_ref(q_rows, V, aug, act)
+        out = _launch_score(q_rows, V, aug, act, dev)
+        gather_score_batch.launches += 1
+        return out
+
+    return _grouped(one, q_rows, V, aug_idx, active)
 
 
 gather_score_batch.launches = 0

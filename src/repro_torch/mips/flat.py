@@ -16,8 +16,11 @@ Over a factored `MarginalWorkload` there are no explicit rows for K1 to
 stream: the probe takes the workload's full score vector
 (`MarginalWorkload.probe_scores`, segment sums past ``score_block``
 queries) and a stable descending sort of |s|, as the reference's
-`_flat_abs_workload_scores` does. Such an index probes one lane at a time
-(``supports_batch_probe`` is False).
+`_flat_abs_workload_scores` does. Such an index has no ``query_batch``
+(``supports_batch_probe`` is False, as in the reference); a factored wave
+probes through `query_batch_with_scores` instead (``has_full_scores``):
+the (B, m) scores of a (B, U) block, a stable sort a lane, and the scores
+themselves, which the wave's tail and overflow redo look up.
 
 A wave of B probes (`query_batch`) is the reference's
 `_flat_abs_query_batch`: one (B × U) @ (U × m) product reads Q once for
@@ -32,6 +35,16 @@ import torch
 from repro_torch.core.workload import as_workload
 from repro_torch.device import resolve_device
 from repro_torch.kernels.mips_topk import mips_topk
+
+
+def _abs_top_k(s: torch.Tensor, k: int):
+    """Top-k of |s| along the last axis by a stable descending sort (the
+    lower id first among ties) → ``(aug ids int32, |scores|)``: id j for
+    +s_j, j + m for −s_j."""
+    top_a, top_i = torch.sort(s.abs(), dim=-1, descending=True, stable=True)
+    top_a, top_i = top_a[..., :k], top_i[..., :k]
+    aug = torch.where(s.gather(-1, top_i) >= 0, top_i, top_i + s.shape[-1])
+    return aug.to(torch.int32), top_a
 
 
 class FlatIndex:
@@ -81,26 +94,41 @@ class FlatAbsIndex:
     def supports_batch_probe(self) -> bool:
         return self._w.is_dense
 
+    @property
+    def has_full_scores(self) -> bool:
+        """A factored workload's probe computes all m signed scores anyway:
+        `query_batch_with_scores` hands them to the wave."""
+        return not self._w.is_dense
+
+    @property
+    def workload(self):
+        return self._w
+
     def query(self, v: torch.Tensor, k: int):
         if self._q is not None:
             return mips_topk(self._q, v, k, mode="aug")
-        s = self._w.probe_scores(v)
-        top_a, top_i = torch.sort(s.abs(), descending=True, stable=True)
-        top_a, top_i = top_a[:k], top_i[:k]
-        aug = torch.where(s[top_i] >= 0, top_i, top_i + self.m)
-        return aug.to(torch.int32), top_a
+        return _abs_top_k(self._w.probe_scores(v), k)
 
     def query_batch(self, V: torch.Tensor, k: int):
         """Top-k a lane of a (B, U) probe block → ``(aug ids int32 (B, k),
         |scores| (B, k))``; dense workloads only."""
         if self._q is None:
             raise ValueError("a factored workload's flat index probes one "
-                             "lane at a time (no wave probe)")
-        s = V @ self._q.T                                   # (B, m)
-        top_a, top_i = torch.sort(s.abs(), dim=1, descending=True, stable=True)
-        top_a, top_i = top_a[:, :k], top_i[:, :k]
-        aug = torch.where(s.gather(1, top_i) >= 0, top_i, top_i + self.m)
-        return aug.to(torch.int32), top_a
+                             "lane at a time with query; a wave probes "
+                             "through query_batch_with_scores")
+        return _abs_top_k(V @ self._q.T, k)                 # (B, m) scores
+
+    def query_batch_with_scores(self, V: torch.Tensor, k: int):
+        """Top-k a lane of a (B, U) probe block over a factored workload →
+        ``(aug ids int32 (B, k), |scores| (B, k), signed scores (B, m))``:
+        `MarginalWorkload.probe_scores` of the block, then a stable
+        descending sort of |s| a lane (the reference's
+        `query_in_graph_with_scores`, vmapped)."""
+        if self._q is not None:
+            raise ValueError("a dense workload's flat index probes a wave "
+                             "with query_batch")
+        s = self._w.probe_scores(V)                          # (B, m)
+        return (*_abs_top_k(s, k), s)
 
     def query_cost(self, k: int) -> int:
         return self.m

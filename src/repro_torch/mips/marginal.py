@@ -10,6 +10,12 @@ gather or k-means build exists anywhere on this path.
 Exactness: the global top-k by |score| lies inside the top cliques by max
 |cell|, so with ``nprobe`` cliques covering at least k cells the probe's
 top-k is the exhaustive one (``approx_margin = failure_mass = 0``).
+
+A wave probes through `query_batch_with_scores` (``has_full_scores``, as
+in the reference; ``supports_batch_probe`` stays False): the tables of a
+(B, U) block in one pass of segment sums, the probe a lane, and every
+query's signed score read off the same tables for the wave's tail and
+overflow redo.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ class MarginalIVFIndex:
     approx_margin = 0.0
     failure_mass = 0.0
     supports_batch_probe = False
+    has_full_scores = True
 
     def __init__(self, workload: MarginalWorkload, nprobe: int | None = None,
                  device=None):
@@ -76,6 +83,19 @@ class MarginalIVFIndex:
         aug, top_a, _ = marginal_probe_topk_ref(
             tabs, self._w.cl_cells, self._starts, self.m, k, self._nprobe_for(k))
         return aug, top_a
+
+    def query_batch_with_scores(self, V: torch.Tensor, k: int):
+        """Top-k a lane of a (B, U) probe block → ``(aug ids int32 (B, k),
+        |scores| (B, k), signed scores (B, m))``: the block's tables, then
+        `marginal_probe_topk_ref` a lane, the scores taken from the same
+        tables (the reference's `query_in_graph_with_scores`, vmapped)."""
+        tabs = self._w.marginal_tables(V)                    # (B, nc, mc)
+        nprobe = self._nprobe_for(k)
+        aug, top_a = zip(*(marginal_probe_topk_ref(
+            t, self._w.cl_cells, self._starts, self.m, k, nprobe)[:2]
+            for t in tabs))
+        s = self._w.table_answers(tabs)
+        return torch.stack(aug), torch.stack(top_a), s
 
     def query_cost(self, k: int) -> int:
         """Candidate evaluations per query: the clique-statistic pass plus

@@ -25,9 +25,10 @@ import torch
 from repro.core import mwem as ref_mwem
 from repro.core.workload import DenseWorkload as RefDenseWorkload
 
-from repro_torch.kernels.mwem_step import (NARROW_U, SEG, gather_score_batch,
-                                           score_plan)
-from repro_torch.kernels.mwem_step.ops import MAX_SLOTS
+from repro_torch.kernels.mwem_step import (NARROW_U, SEG, gather_score,
+                                           gather_score_batch, score_plan)
+from repro_torch.kernels.mwem_step import ops as score_ops
+from repro_torch.kernels.mwem_step.ops import MAX_SLOTS, score_groups
 F32 = np.float32
 WARPS = 8  # warps a split block: kScoreWarps
 
@@ -247,3 +248,65 @@ def test_wave_lane_equals_single_lane(U):
     for b in range(lanes):
         one = _split_scores(Q, V[b:b + 1], aug[b:b + 1], active[b:b + 1], sms=5)
         assert np.array_equal(one[0], wave[b])
+
+
+# ------------------------------------------ calls past MAX_SLOTS: in groups
+
+@pytest.mark.parametrize("U,lanes,C,limit", [(300, 5, 70, 262144),
+                                             (300, 5, 70, 140),
+                                             (300, 5, 70, 64),
+                                             (SEG + 1, 192, 3, 64),
+                                             (NARROW_U, 5, 70, 7)])
+def test_score_groups_cover_each_slot_once(monkeypatch, U, lanes, C, limit):
+    """Each (lane, column) slot lies in exactly one group; on the split
+    route a group holds at most MAX_SLOTS slots, whole lanes while a lane
+    fits and column ranges of one lane past it; the narrow route and a
+    call within the limit are one group."""
+    monkeypatch.setattr(score_ops, "MAX_SLOTS", limit)
+    groups = score_groups(U, lanes, C)
+    seen = np.zeros((lanes, C), np.int64)
+    for b0, b1, c0, c1 in groups:
+        seen[b0:b1, c0:c1] += 1
+        if score_plan(U)[0] == "split":
+            assert (b1 - b0) * (c1 - c0) <= limit
+        assert (c0, c1) == (0, C) or b1 - b0 == 1
+    assert (seen == 1).all()
+    if score_plan(U)[0] == "narrow" or lanes * C <= limit:
+        assert groups == [(0, lanes, 0, C)]
+
+
+@pytest.mark.parametrize("limit", [140, 64, 7], ids=["two-lanes", "columns-64",
+                                                     "columns-7"])
+@pytest.mark.parametrize("U", [300, SEG + 1])
+def test_grouped_calls_equal_the_whole_call(monkeypatch, U, limit):
+    """With MAX_SLOTS forced small, the lane-grouped (140: two lanes a
+    group) and column-grouped (64, 7: ranges of one lane) calls equal the
+    whole call bit for bit: on the split route's replay with float rows
+    (each slot's items are summed alike whoever takes them), and through
+    the CPU wrappers with integer-valued rows and probes (the plain
+    product's own blocking follows the call's row count, so its float
+    sums match only to rounding, checked with `_tol`)."""
+    lanes, C = 5, 70
+    Q, V, aug, active = _case(U, lanes, C, 3)
+    Qi, Vi = np.rint(2 * Q).astype(F32), np.rint(2 * V).astype(F32)
+    whole = _split_scores(Q, V, aug, active)
+    t = [torch.from_numpy(x) for x in (Qi, Vi, aug, active)]
+    tf = [torch.from_numpy(x) for x in (Q, V, aug, active)]
+    w_int, w_flt = gather_score_batch(*t), gather_score_batch(*tf)
+    w_one = gather_score(t[0], t[1][3], t[2][3], t[3][3])
+    monkeypatch.setattr(score_ops, "MAX_SLOTS", limit)
+    groups = score_groups(U, lanes, C)
+    assert len(groups) > 1
+    parts = np.full((lanes, C), np.nan, F32)
+    for b0, b1, c0, c1 in groups:
+        parts[b0:b1, c0:c1] = _split_scores(Q, V[b0:b1], aug[b0:b1, c0:c1],
+                                            active[b0:b1, c0:c1], sms=5)
+    assert np.array_equal(parts, whole)
+    before = gather_score_batch.launches, gather_score.launches
+    assert torch.equal(gather_score_batch(*t), w_int)
+    assert torch.equal(gather_score(t[0], t[1][3], t[2][3], t[3][3]), w_one)
+    assert torch.equal(w_one, w_int[3])
+    got = gather_score_batch(*tf).numpy()
+    _, mag = _reference(Q, V, aug, active)
+    assert np.all(np.abs(got - w_flt.numpy()) <= 2 * _tol(U, mag))
+    assert (gather_score_batch.launches, gather_score.launches) == before

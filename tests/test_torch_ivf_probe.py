@@ -28,9 +28,10 @@ import torch
 from repro.kernels.ivf_probe.ref import ivf_probe_topk_ref
 
 from repro_torch.kernels.ivf_probe import ivf_probe_stream, ivf_probe_stream_ref
+from repro_torch.kernels.ivf_probe import ops as ivf_ops
 from repro_torch.kernels.ivf_probe.ops import (CACHE_KEYS, MAX_PROBE, MAX_SLOTS,
                                                NARROW_D, NARROW_THREADS, SEG,
-                                               probe_plan)
+                                               probe_groups, probe_plan)
 
 F32 = np.float32
 WARPS = 8        # warps a split block: kWarps
@@ -350,3 +351,75 @@ def test_last_block_select_equals_a_stable_sort(n, k, T, kind):
     assert np.array_equal(got, keys[order])
     if kind == "normal" and n > 2 * k:
         assert n_surv <= k + n // 8  # the threshold digit's bin is small
+
+
+# ------------------------------------ probes past the limits: in groups
+
+@pytest.mark.parametrize("nprobe,cap,slots,probes", [
+    (13, 6, MAX_SLOTS, 4), (13, 10, 25, MAX_PROBE), (3, 40, 16, MAX_PROBE),
+    (2, 1, 1, 1), (5, 8, 8, MAX_PROBE)])
+def test_probe_groups_cover_the_probe_once(monkeypatch, nprobe, cap, slots,
+                                           probes):
+    """Each probed (cell, slot) lies in exactly one group, in probe order;
+    a group fits `probe_plan`'s limits (runs of whole cells, or slot ranges
+    of one cell larger than MAX_SLOTS); within the limits, one group."""
+    monkeypatch.setattr(ivf_ops, "MAX_SLOTS", slots)
+    monkeypatch.setattr(ivf_ops, "MAX_PROBE", probes)
+    groups = probe_groups(nprobe, cap)
+    order = [(i, s) for first, last, lo, hi in groups
+             for i in range(first, last) for s in range(lo, hi)]
+    assert order == [(i, s) for i in range(nprobe) for s in range(cap)]
+    for first, last, lo, hi in groups:
+        probe_plan(last - first, hi - lo, 33, sms=132)  # within the limits
+    if nprobe * cap <= slots and nprobe <= probes:
+        assert groups == [(0, nprobe, 0, cap)]
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "ties"])
+@pytest.mark.parametrize("nlist,cap,nprobe,slots,probes", [
+    (20, 6, 13, MAX_SLOTS, 4),    # runs of 4 cells: MAX_PROBE
+    (16, 10, 9, 25, MAX_PROBE),   # runs of 2 cells: MAX_SLOTS
+    (6, 40, 3, 16, MAX_PROBE),    # each cell in slot ranges of 16
+])
+def test_grouped_probe_equals_ungrouped_and_reference(
+        monkeypatch, integer, nlist, cap, nprobe, slots, probes):
+    """With MAX_SLOTS and MAX_PROBE forced small, a probe runs in groups
+    whose top-ks merge into the ungrouped probe's — ids equal (with integer
+    rows, exact ties ranked in probe then slot order, and the scores bit
+    for bit), n_valid equal — and into the reference's
+    `ivf_probe_topk_ref`, for k from 1 past n_valid (above every group's
+    valid rows, so −1 pads come last) up to every slot."""
+    rng = np.random.default_rng([nlist, cap, nprobe, int(integer)])
+    d = 8
+    rows, ids = _table(nlist, cap, d, "random", rng, integer=integer)
+    cents = rng.standard_normal((nlist, d)).astype(F32)
+    q = (rng.integers(-2, 3, d) if integer else rng.standard_normal(d)).astype(F32)
+    probe = _ref_probe(cents, q, nprobe)
+    n_valid = int((ids[probe] >= 0).sum())
+    args = [torch.from_numpy(x) for x in (probe.astype(np.int32), rows, ids, q)]
+    V = np.nan_to_num(rows).reshape(-1, d)
+    ks = sorted({1, 7, n_valid, n_valid + 5, nprobe * cap})
+    whole = {k: ivf_probe_stream(*args, k) for k in ks}
+    monkeypatch.setattr(ivf_ops, "MAX_SLOTS", slots)
+    monkeypatch.setattr(ivf_ops, "MAX_PROBE", probes)
+    assert len(probe_groups(nprobe, cap)) > 1
+    before = ivf_probe_stream.launches
+    for k in ks:
+        g_ids, g_s, g_n = ivf_probe_stream(*args, k)
+        w_ids, w_s, w_n = whole[k]
+        assert g_ids.dtype == torch.int32 and g_ids.shape == (k,)
+        assert torch.equal(g_ids, w_ids) and int(g_n) == int(w_n) == n_valid
+        if integer:
+            assert torch.equal(g_s, w_s)
+        else:
+            np.testing.assert_allclose(g_s.numpy(), w_s.numpy(), rtol=1e-6)
+        r_ids, r_s, r_n = ivf_probe_topk_ref(
+            jnp.asarray(cents), jnp.asarray(ids), jnp.asarray(V),
+            jnp.asarray(q), k, nprobe)
+        np.testing.assert_array_equal(g_ids.numpy(), np.asarray(r_ids))
+        np.testing.assert_allclose(g_s.numpy(), np.asarray(r_s), rtol=1e-6,
+                                   atol=1e-6)
+        assert int(r_n) == n_valid
+        if k > n_valid:
+            assert (g_ids[n_valid:] == -1).all() and torch.isneginf(g_s[n_valid:]).all()
+    assert ivf_probe_stream.launches == before  # the CPU runs no kernel

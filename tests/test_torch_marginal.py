@@ -362,11 +362,27 @@ def test_ledger_equals_release_cost(kind, pair, hist):
 
 
 def test_factored_wave_raises(pair, hist):
+    """What a factored wave still refuses: a per-lane h of the wrong shape,
+    an index built over another workload, and a fast wave given an index
+    without a factored wave probe (`tests/test_torch_marginal_batch.py`
+    runs the waves themselves)."""
     _, mine = pair
-    with pytest.raises(ValueError, match="factored waves"):
-        launch_mwem_batch(mine, torch.as_tensor(hist),
-                          MWEMConfig(T=2, mode="exact", n_records=N),
-                          [TorchDraws.seeded(0, CPU)], device=CPU)
+    draws = [TorchDraws.seeded(0, CPU), TorchDraws.seeded(1, CPU)]
+    fast = MWEMConfig(T=2, mode="fast", n_records=N)
+    with pytest.raises(ValueError, match="per-lane h"):
+        launch_mwem_batch(mine, torch.as_tensor(np.stack([hist] * 3)),
+                          MWEMConfig(T=2, mode="exact", n_records=N), draws,
+                          device=CPU)
+    other = convert.marginal_workload(CARD, CLIQUES, device=CPU)
+    for index in (FlatAbsIndex(other, device=CPU),
+                  MarginalIVFIndex(other, device=CPU)):
+        with pytest.raises(ValueError, match="another workload"):
+            launch_mwem_batch(mine, torch.as_tensor(hist), fast, draws,
+                              index=index, device=CPU)
+    with pytest.raises(ValueError, match="no factored wave probe"):
+        launch_mwem_batch(mine, torch.as_tensor(hist), fast, draws,
+                          index=FlatAbsIndex(mine.densify(), device=CPU),
+                          device=CPU)
 
 
 # ----------------------------------------------------------- adaptive loop
